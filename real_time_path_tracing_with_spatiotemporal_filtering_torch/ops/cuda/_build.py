@@ -1,0 +1,144 @@
+"""Build and load the CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
+with a plain C interface, loaded with ctypes. The build happens at first
+use, into ``_build/`` beside the package (listed in ``.gitignore``), under a
+name keyed by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.
+
+Flags: ``sm_90a`` (Hopper). No ``--use_fast_math`` and no flush-to-zero:
+the Box-Muller clamp ``max(1e-38, u1)`` is subnormal in float32 and would
+flush to 0 (``log(0)`` = inf radiance). ``--fmad=false`` keeps ``a*b + c``
+as two roundings, the way the plain PyTorch version computes it, so kernel
+and plain version agree bit for bit where their operations agree.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3",
+    "-std=c++17",
+    "-shared",
+    "-Xcompiler", "-fPIC",
+    "--fmad=false",
+    "-Xptxas", "-v",
+]
+
+# Launches of each kernel, counted by its wrapper right after a launch it
+# made succeeded (never for the plain version). ``LAUNCHES.clear()`` resets.
+LAUNCHES: collections.Counter = collections.Counter()
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libptsf_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if their library is missing; returns its path."""
+    global build_log
+    out = _library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def _declare(lib) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    signatures = {
+        # table, num_tris, params, width, height, slope, t_max, eps,
+        # vis, depth, normal, lam, prev_y, prev_x, world, stream
+        "ptsf_geometry": [p, i, p, i, i, f, f, f, p, p, p, p, p, p, p, p],
+        # table, num_tris, params, width, height, frame, max_bounces, slope,
+        # aa_sigma, ray_eps, t_max, eps, light_r2, first_dim,
+        # light_through_walls, out, stream
+        "ptsf_trace": [p, i, p, i, i, i, i, f, f, f, f, f, f, f, i, p, p],
+        # color_in, normal, depth, color_out, width, height, k, sigma_n,
+        # sigma_z, sigma_l, stream
+        "ptsf_atrous_iter": [p, p, p, p, i, i, i, f, f, f, p],
+        # filtered, prev_image, prev_y, prev_x, lam, out, width, height,
+        # alpha, adaptive, frame, stream
+        "ptsf_temporal_blend": [p, p, p, p, p, p, i, i, f, i, i, p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+
+
+def library():
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            _declare(lib)
+            _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point ``name`` on the current stream; raise on a CUDA
+    error from the launch, and count the launch."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    LAUNCHES[name.removeprefix("ptsf_")] += 1
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``/``shape``."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,142 @@
+"""The PyTorch port's RenderConfig, guards and build flags against the JAX
+package."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
+    RenderConfig as JaxConfig,
+)
+from real_time_path_tracing_with_spatiotemporal_filtering_torch import (
+    Renderer,
+    Scene,
+)
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.config import (
+    RenderConfig,
+)
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import _build
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline import frame
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_fields_and_defaults_identical():
+    jax_fields = [(f.name, f.type, f.default) for f in dataclasses.fields(JaxConfig)]
+    port_fields = [(f.name, f.type, f.default) for f in dataclasses.fields(RenderConfig)]
+    assert port_fields == jax_fields
+    assert RenderConfig().resolution == JaxConfig().resolution
+
+
+INVALID = [
+    dict(width=0),
+    dict(height=-1),
+    dict(wavelet_iterations=4),
+    dict(spp=0),
+    dict(max_bounces=0),
+    dict(rr_start_bounce=-1),
+    dict(rr_min_prob=0.0),
+    dict(rr_min_prob=0.9, rr_max_prob=0.5),
+    dict(demodulate_albedo=True),
+    dict(accumulation_ramp=True, ramp_alpha_min=0.0),
+    dict(ramp_reset_mode="depth"),
+    dict(firefly_clamp=-1.0),
+    dict(path_gradient=True),
+    dict(gradient_stratum=0),
+    dict(indirect_split=32),
+    dict(indirect_split=2, indirect_stride=0),
+    dict(indirect_split=2, indirect_sigma_z=0.0),
+    dict(indirect_split=2, indirect_normal_pow=-1),
+    dict(indirect_split=2, indirect_jitter=True, width=999),
+    dict(indirect_jitter=True),
+    dict(backend="cuda"),
+]
+
+
+@pytest.mark.parametrize("kwargs", INVALID, ids=[str(k) for k in INVALID])
+def test_invalid_config_rejected_by_both(kwargs):
+    with pytest.raises(ValueError):
+        JaxConfig(**kwargs)
+    with pytest.raises(ValueError):
+        RenderConfig(**kwargs)
+
+
+UNPORTED = [
+    ("nee", dict(nee=True)),
+    ("rr_start_bounce", dict(rr_start_bounce=2)),
+    ("truncate_radiance", dict(truncate_radiance=True)),
+    ("variance_guided", dict(variance_guided=True)),
+    ("demodulate_albedo", dict(variance_guided=True, demodulate_albedo=True)),
+    ("accumulation_ramp", dict(accumulation_ramp=True)),
+    ("firefly_clamp", dict(firefly_clamp=2.0)),
+    ("gbuffer_primary", dict(gbuffer_primary=True)),
+    ("path_gradient", dict(adaptive_alpha=True, path_gradient=True)),
+    ("indirect_split", dict(indirect_split=2)),
+]
+
+
+@pytest.mark.parametrize("name,kwargs", UNPORTED, ids=[n for n, _ in UNPORTED])
+def test_unported_flag_raises(name, kwargs):
+    cfg = RenderConfig(width=8, height=8, **kwargs)
+    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP"):
+        frame.check_supported(cfg)
+    with pytest.raises(NotImplementedError):
+        Renderer(Scene.cornell_box(), cfg, device="cpu")
+
+
+def test_model_matrix_raises():
+    with pytest.raises(NotImplementedError, match="model matrix.*ROADMAP"):
+        frame.check_supported(RenderConfig(), model=torch.eye(4))
+
+
+def test_pallas_backend_on_cpu_raises():
+    r = Renderer(Scene.cornell_box(), RenderConfig(width=8, height=8, backend="pallas"),
+                 device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        r.step()
+
+
+def test_port_does_not_import_jax():
+    code = (
+        "import sys\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch as p\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.atrous\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.geometry\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.pathtrace\n"
+        "p.Renderer(p.Scene.cornell_box(), p.RenderConfig(width=8, height=8, max_bounces=2),"
+        " device='cpu').step()\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('real_time_path_tracing_with_spatiotemporal_filtering_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_nvcc_flags():
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "--use_fast_math" not in flags
+    assert "-ftz=true" not in flags
+    assert "--fmad=false" in flags
+    assert {os.path.basename(s) for s in _build.sources()} == {
+        "geometry.cu", "pathtrace.cu", "atrous.cu"
+    }
+
+
+def test_cpu_launches_nothing():
+    """On CPU tensors the wrappers run the plain version and count no
+    launch."""
+    _build.LAUNCHES.clear()
+    r = Renderer(Scene.cornell_box(), RenderConfig(width=8, height=8, max_bounces=2),
+                 device="cpu")
+    frame._render_frame_kernels(r.tri_data, r.camera, r.light, r.history, r.cfg)
+    assert sum(_build.LAUNCHES.values()) == 0
