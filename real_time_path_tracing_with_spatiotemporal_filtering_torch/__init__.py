@@ -4,9 +4,10 @@ with hand-written CUDA kernels for NVIDIA Hopper.
 The PyTorch port of ``real_time_path_tracing_with_spatiotemporal_filtering_tpu``
 (the JAX package, which stays the reference). The reference's four GPU passes
 (visibility G-buffer, temporal gradient, path trace, 9x a-trous wavelet
-filter with temporal EMA) run through four CUDA kernels on a CUDA device and
-through their plain PyTorch versions on the CPU. This package imports torch
-and numpy, never jax.
+filter with temporal EMA), and the SVGF and estimator extensions on them,
+run through hand-written CUDA kernels on a CUDA device and through their
+plain PyTorch versions on the CPU. Preset renderers are in ``models``. This
+package imports torch and numpy, never jax.
 
 Public API (the JAX package's names):
     RenderConfig     -- every tunable the reference hardcodes (common.h etc.)

@@ -105,6 +105,22 @@ struct Hit {
   float t, u, v;
 };
 
+// One ray/triangle test against a table row: the hit distance t and the
+// barycentrics u, v, and whether the hit is valid (ops/intersect.py).
+__device__ __forceinline__ bool tri_test(const float* r, V3 o, V3 d, float t_max, float eps,
+                                         float& t, float& u, float& v) {
+  V3 n = load3(r + 9), n1 = load3(r + 13), n2 = load3(r + 17);
+  float no = dot(o, n), nd = dot(d, n);
+  float n1o = dot(o, n1), n1d = dot(d, n1);
+  float n2o = dot(o, n2), n2d = dot(d, n2);
+  bool parallel = fabsf(nd) < eps;
+  float safe_nd = parallel ? eps : nd;
+  t = (r[12] - no) / safe_nd;
+  u = n1o + t * n1d + r[16];
+  v = n2o + t * n2d + r[20];
+  return !parallel && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f && t <= t_max;
+}
+
 __device__ __forceinline__ Hit nearest_hit(const float* tab, int stride, int num_tris, V3 o, V3 d,
                                            float t_max, float eps) {
   // argmin over t_cand (invalid -> 2 t_max) takes the first minimum: a
@@ -113,17 +129,8 @@ __device__ __forceinline__ Hit nearest_hit(const float* tab, int stride, int num
   Hit h = {false, 0, 0.0f, 0.0f, 0.0f};
   const float miss_t = 2.0f * t_max;
   for (int i = 0; i < num_tris; ++i) {
-    const float* r = tab + i * stride;
-    V3 n = load3(r + 9), n1 = load3(r + 13), n2 = load3(r + 17);
-    float no = dot(o, n), nd = dot(d, n);
-    float n1o = dot(o, n1), n1d = dot(d, n1);
-    float n2o = dot(o, n2), n2d = dot(d, n2);
-    bool parallel = fabsf(nd) < eps;
-    float safe_nd = parallel ? eps : nd;
-    float t = (r[12] - no) / safe_nd;
-    float u = n1o + t * n1d + r[16];
-    float v = n2o + t * n2d + r[20];
-    bool valid = !parallel && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f && t <= t_max;
+    float t, u, v;
+    bool valid = tri_test(tab + i * stride, o, d, t_max, eps, t, u, v);
     float t_cand = valid ? t : miss_t;
     if (t_cand < best) {
       best = t_cand;
@@ -132,6 +139,22 @@ __device__ __forceinline__ Hit nearest_hit(const float* tab, int stride, int num
   }
   if (!h.hit) return {false, 0, t_max, 0.0f, 0.0f};
   return h;
+}
+
+// Whether any triangle is hit at a distance t <= cap: the same boolean as
+// "the nearest hit is at t <= cap", since the nearest valid t is <= cap
+// exactly when some valid t is. Stops at the first such triangle; under
+// kCount adds the number of triangles tested to ``tests``.
+template <bool kCount>
+__device__ __forceinline__ bool any_hit_within(const float* tab, int stride, int num_tris, V3 o,
+                                               V3 d, float cap, float t_max, float eps,
+                                               int& tests) {
+  for (int i = 0; i < num_tris; ++i) {
+    if (kCount) ++tests;
+    float t, u, v;
+    if (tri_test(tab + i * stride, o, d, t_max, eps, t, u, v) && t <= cap) return true;
+  }
+  return false;
 }
 
 // v0 + u*e1 + v*e2 of the committed triangle (ops/intersect.hit_position).

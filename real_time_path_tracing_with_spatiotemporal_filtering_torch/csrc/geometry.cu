@@ -7,7 +7,11 @@
 // outputs of ops/gbuffer.visibility_pass, ops/gradient.temporal_gradient_pass,
 // ops/atrous.backproject_pixels and the filter normal lut_normals[vis]:
 //   vis (H,W) f32, depth (H,W) f32, normal (H,W,3) f32, lam (H,W) f32,
-//   prev_y / prev_x (H,W) i32, world (H,W,3) f32.
+//   prev_y / prev_x (H,W) i32, world (H,W,3) f32,
+// and, when asked (emit_albedo, for albedo demodulation), the committed
+// triangle's albedo (H,W,3) f32, 1.0 for the background
+// (ops/atrous.albedo_image). The albedo is one load per pixel from a (T,3)
+// array in global memory, so the shared table keeps its 42-float rows.
 //
 // What bounds it on the H100: arithmetic. Each pixel runs T ray/triangle
 // tests (~40 flops each; T = 32 for the Cornell box) and writes 44 bytes, so
@@ -80,7 +84,9 @@ __global__ void geometry_kernel(const float* __restrict__ table, int num_tris,
                                 float slope, float t_max, float eps, float* __restrict__ out_vis,
                                 float* __restrict__ out_depth, float* __restrict__ out_normal,
                                 float* __restrict__ out_lam, int* __restrict__ out_py,
-                                int* __restrict__ out_px, float* __restrict__ out_world) {
+                                int* __restrict__ out_px, float* __restrict__ out_world,
+                                const float* __restrict__ albedo,
+                                float* __restrict__ out_albedo) {
   extern __shared__ float smem[];
   __shared__ float prm[56];
   int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -138,6 +144,9 @@ __global__ void geometry_kernel(const float* __restrict__ table, int num_tris,
   out_py[pix] = py;
   out_px[pix] = px;
   store3(out_world + 3 * pix, world);
+  if (out_albedo != nullptr) {
+    store3(out_albedo + 3 * pix, h.hit ? load3(albedo + 3 * h.prim) : v3(1.0f, 1.0f, 1.0f));
+  }
 }
 
 }  // namespace
@@ -145,12 +154,13 @@ __global__ void geometry_kernel(const float* __restrict__ table, int num_tris,
 extern "C" int ptsf_geometry(const float* table, int num_tris, const float* params, int width,
                              int height, float slope, float t_max, float eps, float* vis,
                              float* depth, float* normal, float* lam, int* prev_y, int* prev_x,
-                             float* world, cudaStream_t stream) {
+                             float* world, const float* albedo, float* out_albedo,
+                             cudaStream_t stream) {
   dim3 block(16, 16);
   dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
   size_t smem = sizeof(float) * num_tris * kStride;
   geometry_kernel<<<grid, block, smem, stream>>>(table, num_tris, params, width, height, slope,
                                                  t_max, eps, vis, depth, normal, lam, prev_y,
-                                                 prev_x, world);
+                                                 prev_x, world, albedo, out_albedo);
   return (int)cudaGetLastError();
 }

@@ -15,8 +15,10 @@ against the previous frame's output, gathered at the backprojected pixel
 barycentrics are computed against the PREVIOUS LUT vertices (:221-229),
 unlike the gradient pass which uses current ones.
 
-This is the parity subset; the variance-guided filter, albedo
-demodulation and the accumulation ramp are not ported yet.
+The variance-guided filter (SVGF moments, a variance-normalised luminance
+weight and variance propagation), albedo demodulation and the accumulation
+ramp follow the JAX package's XLA ops (ops/atrous.py there), operation for
+operation: that route made the golden snapshots.
 """
 
 from __future__ import annotations
@@ -35,6 +37,11 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.gbuffer impo
 )
 
 H_BOX = float(np.float32(1.0 / 9.0))
+
+
+def _f32(x) -> float:
+    """A Python float holding the float32 value of ``x``."""
+    return float(np.float32(x))
 
 
 def shift_clamped(img, dy: int, dx: int):
@@ -87,7 +94,185 @@ _LUMA = tuple(float(np.float32(c)) for c in (0.2126, 0.7152, 0.0722))
 
 def luminance(rgb):
     """(..., 3) -> (...) Rec.709 luminance."""
-    return _LUMA[0] * rgb[..., 0] + _LUMA[1] * rgb[..., 1] + _LUMA[2] * rgb[..., 2]
+    return luminance_planes(rgb[..., 0], rgb[..., 1], rgb[..., 2])
+
+
+def luminance_planes(r, g, b):
+    """Planar-channel twin of :func:`luminance`."""
+    return _LUMA[0] * r + _LUMA[1] * g + _LUMA[2] * b
+
+
+# --- variance-guided filtering (SVGF extension; cfg.variance_guided) ------
+#
+# The reference's luminance weight has no variance normalization
+# (temporalFiltering.comp.glsl:72-74); these functions implement the SVGF
+# estimator (Schied et al. 2017, section 4): temporally accumulated
+# luminance moments -> per-pixel variance -> a stddev-normalized w_l, with
+# the variance filtered alongside the color.
+
+
+def _box5(x):
+    """5x5 edge-clamped box filter (spatial moment estimate for young
+    history; a plain box as the cheap stand-in for SVGF's 7x7 bilateral)."""
+    acc = torch.zeros_like(x)
+    for dy in range(-2, 3):
+        for dx in range(-2, 3):
+            acc = acc + shift_clamped(x, dy, dx)
+    return acc * _f32(1.0 / 25.0)
+
+
+def spatial_variance(lum):
+    """5x5 spatial luminance variance estimate (young-history fallback)."""
+    s1 = _box5(lum)
+    s2 = _box5(lum * lum)
+    return torch.clamp_min(s2 - s1 * s1, 0.0)
+
+
+def albedo_image(tri_data, visibility):
+    """Primary-hit albedo per pixel from the visibility plane (primID+1,
+    0 = background -> 1.0): the plain twin of the geometry kernel's albedo
+    planes, used for albedo demodulation (cfg.demodulate_albedo)."""
+    lut = torch.cat([torch.ones_like(tri_data.albedo[:1]), tri_data.albedo])
+    return lut[visibility.to(torch.int64)]
+
+
+def demod_scale(albedo, cfg):
+    """Scalar demodulation factor per pixel: max(luminance(albedo), eps).
+    The albedo's luminance, not its channels: the parity albedos have
+    exact-zero channels, and a channel-wise division would blow up the
+    sphere light's glow, which is added with pre-albedo throughput."""
+    return torch.clamp_min(luminance(albedo), _f32(cfg.demod_eps))
+
+
+def demodulate(color, scale):
+    """color / demod_scale, broadcast over the channels."""
+    return color / scale[..., None]
+
+
+def modulate(color, scale):
+    """Inverse of :func:`demodulate`: restore display radiance."""
+    return color * scale[..., None]
+
+
+def accumulate_moments(lum, prev_moments, prev_y, prev_x, frame_idx: int, cfg):
+    """Temporal EMA of the (mu1, mu2) luminance moments at the backprojected
+    pixel; ``lum`` is the current frame's luminance plane. Returns
+    (new_moments (H, W, 2), variance (H, W)).
+
+    Variance = max(0, mu2 - mu1^2) from the accumulated moments; for the
+    first cfg.variance_boost_frames frames a 5x5 spatial estimate of the
+    current frame's moments substitutes. The frame index is a host int, so
+    the spatial estimate is computed only in those frames (the JAX package
+    computes it every frame and selects; the values are the same)."""
+    m_now = torch.stack([lum, lum * lum], dim=-1)
+    if frame_idx > 0:
+        a = np.float32(cfg.moments_alpha)
+        m = prev_moments[prev_y, prev_x] * float(np.float32(1.0) - a) + m_now * float(a)
+    else:
+        m = m_now
+    if frame_idx >= cfg.variance_boost_frames:
+        var = torch.clamp_min(m[..., 1] - m[..., 0] * m[..., 0], 0.0)
+    else:
+        var = spatial_variance(lum)
+    return m, var
+
+
+def normal_class(normal, vis):
+    """Surface-consistency key from the quantized geometric normal
+    (cfg.ramp_reset_mode == "normal"): each component banded into 31 bins
+    and packed, so every sub-triangle of a flat surface shares its key
+    while differently oriented surfaces differ. ``vis`` (primID + 1) keys
+    the background to class 0. Returns an (H, W) float32 key plane (exact:
+    keys < 2^15)."""
+
+    def q(c):
+        return ((c + 1.0) * 15.5).to(torch.int32).clamp(0, 30)
+
+    key = (q(normal[..., 0]) * 31 + q(normal[..., 1])) * 31 + q(normal[..., 2])
+    return torch.where(vis > 0, (key + 1).to(torch.float32), torch.zeros_like(vis))
+
+
+def accumulate_age(prev_age, prev_y, prev_x, lam, frame_idx: int, cfg,
+                   prev_vis, cur_vis):
+    """Per-pixel consecutive-history length N for the SVGF accumulation ramp
+    (cfg.accumulation_ramp): N follows the backprojected history pixel,
+    increments every frame, clamps at cfg.ramp_age_cap, and resets to 1 on
+    frame 0, where the temporal gradient exceeds cfg.ramp_reset_lam, or
+    where the consistency plane (visibility ids or :func:`normal_class`
+    keys) of the history pixel differs from the current one."""
+    if frame_idx <= 0:
+        return torch.ones_like(lam)
+    n = torch.clamp_max(prev_age[prev_y, prev_x] + 1.0, _f32(cfg.ramp_age_cap))
+    reset = (lam > _f32(cfg.ramp_reset_lam)) | (prev_vis[prev_y, prev_x] != cur_vis)
+    return torch.where(reset, torch.ones_like(n), n)
+
+
+def ramp_alpha(age, lam, cfg):
+    """Blend weight of the CURRENT frame under the accumulation ramp:
+    max(ramp_alpha_min, 1/N), composed with adaptive_alpha's gradient blend
+    when both are on. Returns (H, W, 1) for broadcasting."""
+    alpha = torch.clamp_min(1.0 / age, _f32(cfg.ramp_alpha_min))
+    if cfg.adaptive_alpha:
+        alpha = (1.0 - lam) * alpha + lam
+    return alpha[..., None]
+
+
+# 3x3 [1/4, 1/2, 1/4]^2 weights of the variance prefilter, as float32 products
+_GAUSS3 = tuple(
+    (dy, dx, _f32(np.float32(wy) * np.float32(wx)))
+    for dy, wy in zip((-1, 0, 1), (0.25, 0.5, 0.25))
+    for dx, wx in zip((-1, 0, 1), (0.25, 0.5, 0.25))
+)
+
+
+def _gauss3(x):
+    """3x3 gaussian prefilter of the variance (SVGF eq. 5), edge-clamped,
+    as a direct 9-tap sum in row-major tap order."""
+    g = torch.zeros_like(x)
+    for dy, dx, wgt in _GAUSS3:
+        g = g + wgt * shift_clamped(x, dy, dx)
+    return g
+
+
+def atrous_iteration_var(color, var, normal_img, depth, k: int, cfg):
+    """One variance-guided wavelet iteration at stride k.
+
+    Same taps, normal and depth weights as :func:`atrous_iteration`; the
+    luminance weight is |l_p - l_q| over the gaussian-prefiltered stddev
+    (SVGF eq. 5), and the variance is propagated as
+    var' = sum (h w)^2 var_q / (sum h w)^2. Divides where the TPU kernel
+    multiplies by reciprocals: the XLA route made the goldens."""
+    cp, np_, dp = color, normal_img, depth
+    g = _gauss3(var)
+    lp = luminance(cp)
+    denom_l = _f32(cfg.sigma_l) * torch.sqrt(g) + _f32(cfg.variance_eps)
+    num = torch.zeros_like(cp)
+    vnum = torch.zeros_like(g)
+    den = torch.zeros_like(dp)
+    for i in (-1, 0, 1):
+        for j in (-1, 0, 1):
+            cq = shift_clamped(color, j * k, i * k)
+            nq = shift_clamped(normal_img, j * k, i * k)
+            dq = shift_clamped(depth, j * k, i * k)
+            vq = shift_clamped(var, j * k, i * k)
+            w_n = torch.pow(
+                torch.clamp_min(cam_ops.dot3(np_, nq), 0.0), cfg.sigma_n
+            )
+            w_z = torch.exp(-torch.abs(dp - dq) / cfg.sigma_z)
+            w_l = torch.exp(-torch.abs(lp - luminance(cq)) / denom_l)
+            hw = H_BOX * w_n * w_z * w_l
+            num = num + hw[..., None] * cq
+            vnum = vnum + hw * hw * vq
+            den = den + hw
+    return num / den[..., None], vnum / (den * den)
+
+
+def atrous_filter_var(color, var, normal_img, depth, cfg):
+    """All iterations of the variance-guided filter; returns (color', var')."""
+    out, v = color, var
+    for k in range(1, cfg.wavelet_iterations + 1):
+        out, v = atrous_iteration_var(out, v, normal_img, depth, k, cfg)
+    return out, v
 
 
 def backproject_pixels(gbuf, lut_prev, view_prev, proj_prev, cfg):
@@ -119,17 +304,25 @@ def backproject_pixels(gbuf, lut_prev, view_prev, proj_prev, cfg):
     return py.clamp(0, h - 1), px.clamp(0, w - 1)
 
 
-def temporal_accumulate_at(filtered, prev_image, prev_y, prev_x, frame_idx, lam, cfg):
+def temporal_accumulate_at(filtered, prev_image, prev_y, prev_x, frame_idx, lam, cfg,
+                           age=None):
     """EMA blend with precomputed backprojection coordinates: gather the
     history at (prev_y, prev_x) and blend (temporalFiltering.comp.glsl:
     242-263). ``lam`` drives adaptive alpha when cfg.adaptive_alpha (the
-    reference's commented-out :246-248 wired up)."""
+    reference's commented-out :246-248 wired up).
+
+    ``age``: the current frame's history length (:func:`accumulate_age`)
+    when cfg.accumulation_ramp; the blend then uses :func:`ramp_alpha`
+    instead of the fixed ema_alpha."""
     if frame_idx <= 0:
         return filtered
     reprojected = prev_image[prev_y, prev_x]
-    alpha = float(np.float32(cfg.ema_alpha))
-    if cfg.adaptive_alpha:
-        alpha = ((1.0 - lam) * alpha + lam)[..., None]
+    if cfg.accumulation_ramp and age is not None:
+        alpha = ramp_alpha(age, lam, cfg)
+    else:
+        alpha = _f32(cfg.ema_alpha)
+        if cfg.adaptive_alpha:
+            alpha = ((1.0 - lam) * alpha + lam)[..., None]
     return reprojected * (1.0 - alpha) + filtered * alpha
 
 

@@ -33,6 +33,13 @@ def matmul_highest(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
+def true_div(x: torch.Tensor, s: float) -> torch.Tensor:
+    """``x / s`` rounded once, as the kernels and the CPU divide. PyTorch on
+    CUDA multiplies by the rounded reciprocal when the divisor is a Python
+    scalar, which differs from the division in the last bit."""
+    return x / torch.tensor(s, dtype=x.dtype, device=x.device)
+
+
 def fov_slope(fov: float) -> float:
     """float32 tan(fov), the ray slope of the tracer's pinhole."""
     return float(np.float32(math.tan(fov)))
@@ -91,8 +98,8 @@ def pixel_rays(px, py, width, height, fov, jitter_x=None, jitter_y=None,
     h = float(height)
     # screenUV with y flip (raytrace.comp.glsl:315-316); both axes divide by
     # height so x carries the aspect ratio.
-    u = (2.0 * fx - w) / h
-    v = -(2.0 * fy - h) / h
+    u = true_div(2.0 * fx - w, h)
+    v = true_div(-(2.0 * fy - h), h)
     slope = fov_slope(fov)
     d = torch.stack([slope * u, slope * v, -torch.ones_like(u)], dim=-1)
     if rotation is not None:

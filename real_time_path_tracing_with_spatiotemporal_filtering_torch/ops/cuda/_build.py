@@ -1,7 +1,7 @@
 """Build and load the CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface, loaded with ctypes. The build happens at first
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all at once, and
+linked into one shared library with a plain C interface, loaded with ctypes. The build happens at first
 use, into ``_build/`` beside the package (listed in ``.gitignore``), under a
 name keyed by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.
@@ -72,18 +72,35 @@ def _library_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels if their library is missing; returns its path."""
+    """Compile the kernels if their library is missing; returns its path.
+    One nvcc per source, all started together, then one link."""
     global build_log
     out = _library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
+    procs = [
+        subprocess.Popen([_nvcc(), *compile_flags, "-c", "-I", CSRC, "-o", obj, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources(), objs)
+    ]
+    build_log = "".join(proc.communicate()[0] for proc in procs)
+    try:
+        failed = [proc.returncode for proc in procs if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_log}")
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{build_log}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, out)
     return out
 
@@ -92,18 +109,28 @@ def _declare(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
         # table, num_tris, params, width, height, slope, t_max, eps,
-        # vis, depth, normal, lam, prev_y, prev_x, world, stream
-        "ptsf_geometry": [p, i, p, i, i, f, f, f, p, p, p, p, p, p, p, p],
-        # table, num_tris, params, width, height, frame, max_bounces, slope,
-        # aa_sigma, ray_eps, t_max, eps, light_r2, first_dim,
-        # light_through_walls, out, stream
-        "ptsf_trace": [p, i, p, i, i, i, i, f, f, f, f, f, f, f, i, p, p],
+        # vis, depth, normal, lam, prev_y, prev_x, world, albedo,
+        # out_albedo (null: no albedo planes), stream
+        "ptsf_geometry": [p, i, p, i, i, f, f, f, p, p, p, p, p, p, p, p, p, p],
+        # table, num_tris, params, width, height, frame, max_bounces, spp,
+        # batches, slope, aa_sigma, ray_eps, t_max, eps, light_r, light_r2,
+        # first_dim, light_through_walls, nee, rr_start, rr_min, rr_max,
+        # truncate, out, tests_out (null: not counted), stream
+        "ptsf_trace": [p, i, p, i, i, i, i, i, i, f, f, f, f, f, f, f, f, i, i, i, f, f, i,
+                       p, p, p],
         # color_in, normal, depth, color_out, width, height, k, sigma_n,
         # sigma_z, sigma_l, stream
         "ptsf_atrous_iter": [p, p, p, p, i, i, i, f, f, f, p],
+        # color_in, var_in, normal, depth, color_out, var_out, width, height,
+        # k, sigma_n, sigma_z, sigma_l, variance_eps, stream
+        "ptsf_atrous_iter_var": [p, p, p, p, p, p, i, i, i, f, f, f, f, p],
         # filtered, prev_image, prev_y, prev_x, lam, out, width, height,
         # alpha, adaptive, frame, stream
         "ptsf_temporal_blend": [p, p, p, p, p, p, i, i, f, i, i, p],
+        # filtered, prev_image, prev_y, prev_x, lam, prev_age, prev_cons,
+        # cur_cons, out, age_out, width, height, alpha_min, reset_lam,
+        # age_cap, adaptive, frame, stream
+        "ptsf_temporal_blend_ramp": [p, p, p, p, p, p, p, p, p, p, i, i, f, f, f, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

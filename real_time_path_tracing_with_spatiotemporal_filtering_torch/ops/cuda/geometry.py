@@ -36,13 +36,16 @@ class GeometryBuffers(NamedTuple):
     prev_y: torch.Tensor      # (H, W) int32 backprojected row
     prev_x: torch.Tensor      # (H, W) int32 backprojected column
     world_pos: torch.Tensor   # (H, W, 3) hit position (0 for background)
+    albedo: torch.Tensor | None = None  # (H, W, 3) hit albedo (1 for background)
 
 
 def geometry_pass_plain(tri_data, lut_prev, camera_pos, rotation, light_pos,
                         light_pos_prev, light_color, light_color_prev, view,
-                        proj, view_prev, proj_prev, cfg) -> GeometryBuffers:
+                        proj, view_prev, proj_prev, cfg,
+                        emit_albedo: bool = False) -> GeometryBuffers:
     """The plain PyTorch version: ops.gbuffer, ops.gradient and
-    ops.atrous.backproject_pixels, plus the filter normal lut_normals[vis]."""
+    ops.atrous.backproject_pixels, plus the filter normal lut_normals[vis]
+    and, with ``emit_albedo``, ops.atrous.albedo_image."""
     gbuf = gbuffer.visibility_pass(
         tri_data, camera_pos, view, proj, cfg, rotation=rotation
     )
@@ -60,19 +63,21 @@ def geometry_pass_plain(tri_data, lut_prev, camera_pos, rotation, light_pos,
         prev_y=py.to(torch.int32),
         prev_x=px.to(torch.int32),
         world_pos=gbuf.world_pos,
+        albedo=atrous.albedo_image(tri_data, gbuf.visibility) if emit_albedo else None,
     )
 
 
 def geometry_pass(tri_data, lut_prev, camera_pos, rotation, light_pos,
                   light_pos_prev, light_color, light_color_prev, view, proj,
-                  view_prev, proj_prev, cfg) -> GeometryBuffers:
-    """G-buffer, temporal gradient and backprojection in one kernel launch
-    (plain version for CPU tensors)."""
+                  view_prev, proj_prev, cfg, emit_albedo: bool = False) -> GeometryBuffers:
+    """G-buffer, temporal gradient and backprojection in one kernel launch,
+    with the albedo planes when ``emit_albedo`` (plain version for CPU
+    tensors)."""
     args = (tri_data, lut_prev, camera_pos, rotation, light_pos,
             light_pos_prev, light_color, light_color_prev, view, proj,
             view_prev, proj_prev, cfg)
     if camera_pos.device.type == "cpu":
-        return geometry_pass_plain(*args)
+        return geometry_pass_plain(*args, emit_albedo=emit_albedo)
     planes = tri_data.planes
     t = tri_data.num_triangles
     if t > MAX_TRIANGLES:
@@ -115,7 +120,10 @@ def geometry_pass(tri_data, lut_prev, camera_pos, rotation, light_pos,
         prev_y=torch.empty((h, w), dtype=torch.int32, device=dev),
         prev_x=torch.empty((h, w), dtype=torch.int32, device=dev),
         world_pos=torch.empty((h, w, 3), **f32),
+        albedo=torch.empty((h, w, 3), **f32) if emit_albedo else None,
     )
+    albedo = tri_data.albedo.contiguous()
+    _build.check_cuda("albedo", albedo, torch.float32, (t, 3))
     _build.launch(
         "ptsf_geometry",
         table.data_ptr(), t, params.data_ptr(), w, h,
@@ -125,5 +133,7 @@ def geometry_pass(tri_data, lut_prev, camera_pos, rotation, light_pos,
         out.visibility.data_ptr(), out.depth.data_ptr(), out.normal.data_ptr(),
         out.lam.data_ptr(), out.prev_y.data_ptr(), out.prev_x.data_ptr(),
         out.world_pos.data_ptr(),
+        albedo.data_ptr(),
+        out.albedo.data_ptr() if emit_albedo else None,
     )
     return out

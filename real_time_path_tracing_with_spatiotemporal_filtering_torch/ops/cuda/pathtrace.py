@@ -23,17 +23,14 @@ MAX_TRIANGLES = (48 * 1024 - 18 * 4) // (27 * 4)
 path_trace_pass_plain = pathtrace.path_trace_pass
 
 
-def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation):
+def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation, tests=None):
     """Noisy radiance (H, W, 3) of one frame (plain version for CPU
-    tensors)."""
+    tensors). ``tests``: optional (H, W) int32 CUDA tensor that receives
+    the number of ray/triangle tests each pixel ran (nearest-hit walks and
+    NEE shadow walks), for counting the work of a launch."""
     if camera_pos.device.type == "cpu":
         return path_trace_pass_plain(
             tri_data, camera_pos, light, frame_idx, cfg, rotation=rotation
-        )
-    if cfg.spp != 1 or cfg.sample_batches != 1:
-        raise NotImplementedError(
-            "the CUDA tracer runs 1 spp and 1 sample batch; spp/sample_batches "
-            "> 1 in the kernel is ROADMAP Queue 1 item 6 (use backend='xla')"
         )
     t = tri_data.num_triangles
     if t > MAX_TRIANGLES:
@@ -61,6 +58,8 @@ def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation):
     _build.check_cuda("table", table, torch.float32, (t, 27))
     _build.check_cuda("params", params, torch.float32, (18,))
     h, w = cfg.height, cfg.width
+    if tests is not None:
+        _build.check_cuda("tests", tests, torch.int32, (h, w))
     out = torch.empty((h, w, 3), dtype=torch.float32, device=table.device)
 
     def f32(x) -> float:
@@ -69,16 +68,23 @@ def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation):
     _build.launch(
         "ptsf_trace",
         table.data_ptr(), t, params.data_ptr(), w, h, int(frame_idx),
-        cfg.max_bounces,
+        cfg.max_bounces, cfg.spp, cfg.sample_batches,
         cam_ops.fov_slope(cfg.fov),
         f32(cfg.aa_sigma),
         f32(cfg.ray_offset_eps),
         f32(cfg.t_max),
         f32(cfg.intersect_eps),
+        f32(cfg.light_radius),
         # Python squares the radius in double, then the float32 op rounds
         f32(cfg.light_radius * cfg.light_radius),
         f32(1.0 / cfg.first_hit_light_dim),
         int(cfg.light_through_walls),
+        int(cfg.nee),
+        int(cfg.rr_start_bounce),
+        f32(cfg.rr_min_prob),
+        f32(cfg.rr_max_prob),
+        int(cfg.truncate_radiance),
         out.data_ptr(),
+        None if tests is None else tests.data_ptr(),
     )
     return out

@@ -17,12 +17,16 @@ Reference quirks reproduced deliberately (cfg-gated where noted):
   * RNG draw order: 2 Gaussians for AA jitter, then (theta, u) per diffuse
     bounce (raytrace:314, 256-257) -- bit-exact PCG streams (ops/rng.py)
 
-This parity version has no next-event estimation and no Russian roulette;
-the frame rejects those flags (pipeline.frame.check_supported).
+Non-parity estimators, each behind its flag: next-event estimation
+(cfg.nee: one solid-angle sample of the sphere light per bounce, with a
+shadow ray), Russian roulette (cfg.rr_start_bounce) and truncate_radiance
+(no loop fall-through). They follow the JAX package's XLA tracer
+(ops/pathtrace.py there), draw for draw.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
@@ -38,21 +42,80 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.gbuffer impo
 )
 
 
+_INV_PI = float(np.float32(1.0 / 3.14159265))
+
+
+def _nee_sample(o, n_ff, accum, state, tri_hit, tri_data, light_pos,
+                light_color_hdr, cfg):
+    """Next-event estimation at the bounce vertex ``o`` (the offset hit
+    point): sample the sphere light's solid-angle cone, shadow-test the
+    sample against the nearest triangle, and return (banked radiance
+    (..., 3), state). The estimator is accum * L_e * cos_x * Omega / pi
+    (f = albedo/pi is folded into accum, pdf = 1/Omega). The two cone draws
+    follow the bounce draws, so the path itself is the parity one."""
+    to_l = light_pos - o
+    dist = cam_ops.norm3(to_l)
+    safe_dist = torch.clamp_min(dist, 1e-20)
+    wc = to_l / safe_dist[..., None]
+    # a true division (a Python scalar over a tensor would multiply by
+    # the rounded reciprocal)
+    sin_max = torch.clamp(torch.full_like(dist, cfg.light_radius) / safe_dist, 0.0, 1.0)
+    cos_max = torch.sqrt(torch.clamp_min(1.0 - sin_max * sin_max, 0.0))
+    nee_state, u1 = rng_ops.pcg_step(state)
+    nee_state, u2 = rng_ops.pcg_step(nee_state)
+    state = torch.where(tri_hit, nee_state, state)
+    cos_t = 1.0 - u1 * (1.0 - cos_max)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    phi = rng_ops.TWO_PI * u2
+    # branchless orthonormal basis around wc
+    pick = (torch.abs(wc[..., 0]) > 0.9)[..., None]
+    y_axis = wc.new_tensor([0.0, 1.0, 0.0])
+    x_axis = wc.new_tensor([1.0, 0.0, 0.0])
+    tang = cam_ops.cross3(torch.where(pick, y_axis, x_axis), wc)
+    tang = tang / torch.clamp_min(cam_ops.norm3(tang, keepdim=True), 1e-20)
+    bitang = cam_ops.cross3(wc, tang)
+    w_l = (
+        cos_t[..., None] * wc
+        + (sin_t * torch.cos(phi))[..., None] * tang
+        + (sin_t * torch.sin(phi))[..., None] * bitang
+    )
+    cos_x = cam_ops.dot3(n_ff, w_l)
+    s_hit, s_t = intersect.ray_sphere(o, w_l, light_pos, cfg.light_radius)
+    omega = rng_ops.TWO_PI * (1.0 - cos_max)
+    gain = cos_x * omega * _INV_PI
+    rec_s = intersect.nearest_hit(
+        tri_data.planes, o, w_l, t_max=cfg.t_max, eps=cfg.intersect_eps
+    )
+    lit = tri_hit & (cos_x > 0.0) & s_hit & (~rec_s.hit | (s_t < rec_s.t))
+    bank = torch.where(
+        lit[..., None], accum * light_color_hdr * gain[..., None],
+        torch.zeros_like(accum),
+    )
+    return bank, state
+
+
 def bounce_step(segment, o, d, accum, result, alive, state,
                 rec_hit, rec_t, hit_pos, n_geo, albedo,
-                light_pos, light_color_hdr, cfg):
+                light_pos, light_color_hdr, cfg, tri_data=None):
     """One bounce's light/shading/termination given the nearest-hit record.
-    Returns the next (o, d, accum, result, alive, state) carry."""
+    ``tri_data`` is needed only for cfg.nee (the shadow ray). Returns the
+    next (o, d, accum, result, alive, state) carry."""
     light_hit, light_t = intersect.ray_sphere(o, d, light_pos, cfg.light_radius)
-    if not cfg.light_through_walls:
+    if not cfg.light_through_walls or cfg.nee:
         # the light only terminates the path if it is closer than the
-        # committed triangle hit
+        # committed triangle hit (NEE's shadow rays respect walls, so its
+        # termination must too)
         light_hit = light_hit & (~rec_hit | (light_t < rec_t))
 
     # --- light termination (checked first, raytrace.comp.glsl:226-235)
     dim = 1.0 / cfg.first_hit_light_dim if segment == 0 else 1.0
-    light_term = (alive & light_hit)[..., None]
-    result = torch.where(light_term, accum * light_color_hdr * dim, result)
+    light_term = alive & light_hit
+    if cfg.nee and segment > 0:
+        # the sphere still blocks and terminates, but only the camera
+        # segment adds its emission: deeper crossings were counted by the
+        # previous vertex's shadow ray
+        light_term = torch.zeros_like(light_term)
+    result = torch.where(light_term[..., None], accum * light_color_hdr * dim, result)
 
     # --- triangle bounce (raytrace.comp.glsl:238-262)
     tri_hit = alive & ~light_hit & rec_hit
@@ -68,10 +131,31 @@ def bounce_step(segment, o, d, accum, result, alive, state,
     # Only lanes that actually bounced consumed randoms (raytrace:256-257).
     state = torch.where(tri_hit, new_state, state)
 
+    if cfg.nee:
+        bank, state = _nee_sample(new_o, n_ff, accum, state, tri_hit, tri_data,
+                                  light_pos, light_color_hdr, cfg)
+        result = result + bank
+
     # --- sky termination (raytrace.comp.glsl:263-268); ``d`` is the
     # bounced direction where tri_hit, but sky lanes did not bounce
     sky_term = (alive & ~light_hit & ~rec_hit)[..., None]
-    result = torch.where(sky_term, accum * shading.sky_color(d), result)
+    sky = accum * shading.sky_color(d)
+    if cfg.nee:
+        # result may hold banked NEE sums: add, do not replace
+        result = result + torch.where(sky_term, sky, torch.zeros_like(sky))
+    else:
+        result = torch.where(sky_term, sky, result)
+
+    if cfg.rr_start_bounce and segment >= cfg.rr_start_bounce:
+        # --- Russian roulette: one extra uniform per bounced lane; the
+        # survivors' throughput is divided by p (unbiased). Killed lanes
+        # keep their result and take no fall-through.
+        rr_state, u = rng_ops.pcg_step(state)
+        p = torch.clamp(torch.amax(accum, dim=-1), cfg.rr_min_prob, cfg.rr_max_prob)
+        state = torch.where(tri_hit, rr_state, state)
+        survive = u < p
+        accum = torch.where((tri_hit & survive)[..., None], accum / p[..., None], accum)
+        tri_hit = tri_hit & survive
     return o, d, accum, result, tri_hit, state
 
 
@@ -97,10 +181,13 @@ def trace_paths(tri_data, light_pos, light_color_hdr, origins, dirs, rng_state, 
         o, d, accum, result, alive, state = bounce_step(
             segment, o, d, accum, result, alive, state,
             rec.hit, rec.t, hit_pos, n_geo, albedo,
-            light_pos, light_color_hdr, cfg,
+            light_pos, light_color_hdr, cfg, tri_data=tri_data,
         )
     # Loop fall-through: surviving paths return the bare albedo product
-    # (raytrace.comp.glsl:270).
+    # (raytrace.comp.glsl:270). NEE accumulates along the path instead, and
+    # truncate_radiance returns only what was banked: both drop the quirk.
+    if cfg.nee or cfg.truncate_radiance:
+        return result
     return torch.where(alive[..., None], accum, result)
 
 
@@ -134,8 +221,8 @@ def trace_pixels(tri_data, camera_pos, light, frame_idx, px, py, cfg, rotation=N
                 tri_data, light.position, light_color_hdr, origins, dirs,
                 state, cfg,
             )
-        total = total + summed / float(cfg.spp)
-    return total / float(cfg.sample_batches)
+        total = total + cam_ops.true_div(summed, float(cfg.spp))
+    return cam_ops.true_div(total, float(cfg.sample_batches))
 
 
 def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation=None):

@@ -29,9 +29,14 @@ class History:
     light_pos: torch.Tensor        # (3,) previous light position
     light_color: torch.Tensor      # (3,) previous light base color
     frame: int                     # frame counter, kept on the host
-    # The JAX package's History adds optional extension state after
-    # ``frame`` (moments, age, ...), None unless an extension this package
-    # rejects is on, so the leaves of a default-config state are these.
+    # Extension state, None unless its flag is on (see config.py):
+    # (H, W, 2) accumulated luminance moments (mu1, mu2), cfg.variance_guided
+    moments: torch.Tensor | None = None
+    # (H, W) consecutive-history length N, cfg.accumulation_ramp
+    age: torch.Tensor | None = None
+    # (H, W) quantized-normal consistency key (ops.atrous.normal_class),
+    # cfg.accumulation_ramp with ramp_reset_mode == "normal"
+    vis_class: torch.Tensor | None = None
 
     @property
     def height(self) -> int:
@@ -42,27 +47,43 @@ class History:
         return self.image.shape[1]
 
 
+def history_fields(cfg=None) -> list[str]:
+    """The names of the fields a frame under ``cfg`` fills (None: the
+    default config's), in field order."""
+    names = [f.name for f in dataclasses.fields(History) if f.default is dataclasses.MISSING]
+    if cfg is not None:
+        if cfg.variance_guided:
+            names.append("moments")
+        if cfg.accumulation_ramp:
+            names.append("age")
+            if cfg.ramp_reset_mode == "normal":
+                names.append("vis_class")
+    return names
+
+
 def history_leaves(history: History) -> list[np.ndarray]:
     """The history's fields as numpy arrays, in field order (the JAX
-    package's pytree leaf order); ``frame`` as a 0-d int32."""
+    package's pytree leaf order), skipping the fields that are None as
+    ``jax.tree_util.tree_leaves`` does; ``frame`` as a 0-d int32."""
     leaves = []
     for f in dataclasses.fields(History):
         v = getattr(history, f.name)
         if f.name == "frame":
             leaves.append(np.asarray(v, np.int32))
-        else:
+        elif v is not None:
             leaves.append(v.detach().cpu().numpy())
     return leaves
 
 
-def history_from_numpy(arrays: dict, device=None) -> History:
+def history_from_numpy(arrays: dict, device=None, cfg=None) -> History:
     """History from numpy arrays keyed by field name -- the leaves of the
-    JAX package's History, so its state can be resumed in this package."""
+    JAX package's History, so its state can be resumed in this package.
+    ``cfg`` says which extension fields are present (None: none)."""
     values = {}
-    for f in dataclasses.fields(History):
-        v = np.asarray(arrays[f.name])
-        if f.name == "frame":
-            values[f.name] = int(v)
+    for name in history_fields(cfg):
+        v = np.asarray(arrays[name])
+        if name == "frame":
+            values[name] = int(v)
         else:
-            values[f.name] = torch.tensor(v, device=device)
+            values[name] = torch.tensor(v, device=device)
     return History(**values)

@@ -18,7 +18,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.config import (
 )
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline import frame as frame_mod
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline.history import (
-    History,
+    history_fields,
     history_from_numpy,
     history_leaves,
 )
@@ -123,8 +123,8 @@ class Renderer:
                     f"{got.dtype}, renderer expects {cur.shape} {cur.dtype}; "
                     "was it saved with a different scene/resolution?"
                 )
-        names = [f.name for f in dataclasses.fields(History)]
-        self.history = history_from_numpy(dict(zip(names, leaves)), self.device)
+        names = history_fields(self.cfg)
+        self.history = history_from_numpy(dict(zip(names, leaves)), self.device, self.cfg)
         cam_pos, cam_rot, light_pos, light_color = (
             torch.tensor(a, device=self.device) for a in leaves[len(names):]
         )

@@ -75,3 +75,35 @@ def cornell_box() -> tuple[np.ndarray, np.ndarray]:
         indices.append((base, base + 1, base + 2))
         indices.append((base, base + 2, base + 3))
     return vertices.copy(), np.asarray(indices, np.int32)
+
+
+def subdivided_cornell(splits: int) -> tuple[np.ndarray, np.ndarray]:
+    """Cornell Box with each quad split into a splits x splits grid.
+
+    Produces 32 * splits**2 triangles with identical geometry -- a scaling
+    series for traversal work without changing the image. Bit-identical to
+    the JAX package's: the u/v fractions are formed in float64 and rounded
+    to float32.
+    """
+    quads = _CORNELL_QUADS[_QUAD_ORDER].astype(np.float32)
+    u64 = np.arange(splits + 1, dtype=np.float64) / splits
+    u = u64.astype(np.float32)
+    om = (1.0 - u64).astype(np.float32)
+    # corners in winding order: p00, p10, p11, p01 = quad[0..3]
+    a = quads[:, None, 0, :] * om[None, :, None] + quads[:, None, 1, :] * u[None, :, None]
+    b = quads[:, None, 3, :] * om[None, :, None] + quads[:, None, 2, :] * u[None, :, None]
+    grid = (
+        a[:, :, None, :] * om[None, None, :, None]
+        + b[:, :, None, :] * u[None, None, :, None]
+    )  # (quads, splits+1, splits+1, 3) bilinear lattice
+    v00 = grid[:, :-1, :-1]
+    v10 = grid[:, 1:, :-1]
+    v11 = grid[:, 1:, 1:]
+    v01 = grid[:, :-1, 1:]
+    vertices = np.stack([v00, v10, v11, v01], axis=3).reshape(-1, 3)
+    n_cells = quads.shape[0] * splits * splits
+    base = 4 * np.arange(n_cells, dtype=np.int32)
+    tri1 = np.stack([base, base + 1, base + 2], axis=1)
+    tri2 = np.stack([base, base + 2, base + 3], axis=1)
+    indices = np.stack([tri1, tri2], axis=1).reshape(-1, 3)
+    return vertices.astype(np.float32), indices.astype(np.int32)

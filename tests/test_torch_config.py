@@ -6,11 +6,19 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from real_time_path_tracing_with_spatiotemporal_filtering_tpu.config import (
     RenderConfig as JaxConfig,
+)
+from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline import (
+    frame as jframe,
+)
+from real_time_path_tracing_with_spatiotemporal_filtering_tpu.scene.scene import (
+    Camera as JaxCamera,
+    Light as JaxLight,
 )
 from real_time_path_tracing_with_spatiotemporal_filtering_torch import (
     Renderer,
@@ -21,6 +29,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.config import (
 )
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import _build
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline import frame
+from test_torch_estimators import assert_nee_matches
 
 torch.set_num_threads(1)
 
@@ -68,13 +77,6 @@ def test_invalid_config_rejected_by_both(kwargs):
 
 
 UNPORTED = [
-    ("nee", dict(nee=True)),
-    ("rr_start_bounce", dict(rr_start_bounce=2)),
-    ("truncate_radiance", dict(truncate_radiance=True)),
-    ("variance_guided", dict(variance_guided=True)),
-    ("demodulate_albedo", dict(variance_guided=True, demodulate_albedo=True)),
-    ("accumulation_ramp", dict(accumulation_ramp=True)),
-    ("firefly_clamp", dict(firefly_clamp=2.0)),
     ("gbuffer_primary", dict(gbuffer_primary=True)),
     ("path_gradient", dict(adaptive_alpha=True, path_gradient=True)),
     ("indirect_split", dict(indirect_split=2)),
@@ -88,6 +90,35 @@ def test_unported_flag_raises(name, kwargs):
         frame.check_supported(cfg)
     with pytest.raises(NotImplementedError):
         Renderer(Scene.cornell_box(), cfg, device="cpu")
+
+
+EXTENSIONS = [
+    ("nee", dict(nee=True)),
+    ("rr_start_bounce", dict(rr_start_bounce=1)),
+    ("truncate_radiance", dict(truncate_radiance=True)),
+    ("variance_guided", dict(variance_guided=True)),
+    ("demodulate_albedo", dict(variance_guided=True, demodulate_albedo=True)),
+    ("accumulation_ramp", dict(accumulation_ramp=True)),
+    ("firefly_clamp", dict(firefly_clamp=2.0)),
+]
+
+
+@pytest.mark.parametrize("name,kwargs", EXTENSIONS, ids=[n for n, _ in EXTENSIONS])
+def test_extension_flag_matches_jax(cornell_tri_data, name, kwargs):
+    """Each extension the port used to refuse renders one 16x16 frame on
+    the CPU that matches the JAX package's jitted XLA frame (at the golden
+    tolerance; NEE at its criterion, tests/test_torch_estimators.py)."""
+    cfg = RenderConfig(width=16, height=16, max_bounces=3, wavelet_iterations=1, **kwargs)
+    assert getattr(cfg, name)
+    want, _ = jframe.render_frame(
+        cornell_tri_data, JaxCamera.default(), JaxLight.default(),
+        jframe.init_history(cornell_tri_data, cfg), cfg,
+    )
+    got = Renderer(Scene.cornell_box(), cfg, device="cpu").step().numpy()
+    if cfg.nee:
+        assert_nee_matches(got, want)
+    else:
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
 def test_model_matrix_raises():
@@ -109,8 +140,10 @@ def test_port_does_not_import_jax():
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.atrous\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.geometry\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.pathtrace\n"
+        "from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets\n"
         "p.Renderer(p.Scene.cornell_box(), p.RenderConfig(width=8, height=8, max_bounces=2),"
         " device='cpu').step()\n"
+        "presets.cornell_box_quality(device='cpu', width=8, height=8, max_bounces=2).step()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('real_time_path_tracing_with_spatiotemporal_filtering_tpu')]\n"
         "assert not bad, bad\n"
