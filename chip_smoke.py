@@ -12,11 +12,21 @@ filtering_torch/csrc`` with nvcc, then:
   NEE / Russian roulette / several samples / truncate_radiance, the
   geometry kernel's albedo planes) at 1920x1080;
 - checks the kernel route against the repository's golden images;
-- drives three main paths through ``Renderer.step()`` on both routes
+- checks the large-scene kernels (the LBVH geometry kernel, the segment
+  tracer and the shadow segment) against their plain versions at 1920x1080
+  on the 32,768- and 247,808-triangle scenes of paths A and B (the segment
+  tracer on B at segments 0, 1 and 31), at 480x270 for the tracer's further
+  modes, and against the dense kernels (bit for bit, and timed) at
+  1920x1080 on 32, 128 and 288 triangles, where both run;
+- drives six main paths through ``Renderer.step()`` on both routes
   (kernels, and ``backend="xla"``, the plain version), each with the launch
   counts read just after it: the default config for 16 frames at 1000x800,
-  and the ``cornell_box_quality`` and ``cornell_box_interactive`` presets
-  for 8 frames at 1920x1080;
+  the ``cornell_box_quality`` and ``cornell_box_interactive`` presets for 8
+  frames at 1920x1080, and the large scenes of ``presets.cornell_stress``
+  under the orbit camera: path A (32,768 triangles, 8 bounces, Russian
+  roulette from 2, adaptive alpha; 4 frames at 1920x1080), path B (247,808
+  triangles, the default config; 2 frames at 480x270) and path C (A with the
+  G-buffer seed and NEE; 4 frames at 1920x1080);
 - times both routes with CUDA events.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
@@ -47,6 +57,24 @@ FRAMES = 16
 PRESET_FRAMES = 8
 PRESETS = ("cornell_box_quality", "cornell_box_interactive")
 SEED = 20261016
+# The large-scene paths: (splits of presets.cornell_stress, config
+# overrides, frames, size). A and B are rows 4c and 4 of the JAX package's
+# benchmarks/suite.py; C is A with the G-buffer seed and NEE. B's plain
+# route runs at 480x270 (its 32 lockstep walks per frame over 247,808
+# triangles are the slow part of the script).
+PLAIN_SIZE = (480, 270)
+LARGE = {
+    "A": (32, dict(max_bounces=8, rr_start_bounce=2, adaptive_alpha=True), 4, BENCH_SIZE),
+    "B": (88, {}, 2, PLAIN_SIZE),
+    "C": (32, dict(max_bounces=8, rr_start_bounce=2, adaptive_alpha=True, gbuffer_primary=True,
+                   nee=True), 4, BENCH_SIZE),
+}
+LARGE_PER_FRAME = {
+    "A": {"geometry_bvh": 1, "trace_segment": 8, "atrous_iter": 9, "temporal_blend": 1},
+    "B": {"geometry_bvh": 1, "trace_segment": 32, "atrous_iter": 9, "temporal_blend": 1},
+    "C": {"geometry_bvh": 1, "shadow_segment": 1, "trace_segment": 7, "atrous_iter": 9,
+          "temporal_blend": 1},
+}
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes
 # per second and float32 operations per second outside the tensor cores.
@@ -58,6 +86,10 @@ FP32_OPS_PER_S = 67e12
 # variance-guided a-trous pixel (9 taps and the 9-tap prefilter), one blend
 # pixel and one ramp-blend pixel.
 TRI_TEST_OPS = 39
+# a ray/box slab test (csrc/bvh.cuh slab): 6 subtractions, 6 products, 3
+# min and 3 max per axis pair, 4 more for the entry and exit, the clamp at
+# 0 and 3 compares and ands
+SLAB_TEST_OPS = 26
 ATROUS_OPS = 273
 ATROUS_VAR_OPS = 328
 BLEND_OPS = 12
@@ -531,6 +563,373 @@ def timing_phase(pt, dev, card: str) -> None:
             print(f"ms/frame {name} {r.cfg.width}x{r.cfg.height} {route}: {ms:.3f} ({card})")
 
 
+def orbit(pt, i: int, dev):
+    """The JAX package's suite camera at frame i (benchmarks/suite.py)."""
+    return pt.Camera.orbit([0.0, 1.0, 0.0], 6.0, 0.01 * i, 1.0, device=dev)
+
+
+def close_share(label: str, a, b, tol: float) -> float:
+    """Check that a and b agree within tol (abs and rel) on all but 1e-4 of
+    their elements; returns the max abs difference."""
+    import torch
+
+    err, bad = max_abs(a, b), share_outside(a, b, tol, tol)
+    print(f"{label}: max_abs {err:.3e}, share outside {tol:g} {bad:.3e}, "
+          f"bit-equal {torch.equal(a, b)}", flush=True)
+    check(bool(torch.isfinite(a.double()).all().item()) and bad <= 1e-4,
+          f"{label} within {tol:g} on >= 99.99% of elements")
+    return err
+
+
+def walk_bound(counts, nbytes: float, per_tri: int = 0) -> dict:
+    """The bound of a launch, or of a frame's launches, whose walks the
+    kernels counted in ``counts`` (ops/cuda/geometry.WalkCounts): their
+    triangle and box tests, and ``nbytes`` plus, read once, each node row
+    (64 B) and each triangle-test row (48 B, and ``per_tri`` more bytes of
+    that triangle) that some walk read."""
+    import torch
+
+    tri, box = (int(c.sum(dtype=torch.int64).item()) for c in counts.tests)
+    nodes, tris = (int(c.sum(dtype=torch.int64).item()) for c in (counts.nodes, counts.tris))
+    return dict(bound(nbytes + 64 * nodes + (48 + per_tri) * tris,
+                      TRI_TEST_OPS * tri + SLAB_TEST_OPS * box),
+                tri_tests=tri, box_tests=box, node_rows_read=nodes, tri_rows_read=tris)
+
+
+def geometry_bvh_bound(geo_mod, args, td, cfg) -> dict:
+    """The bound of one LBVH geometry launch on ``args``: the output planes
+    (44 B a pixel), the 56 parameters, the rows the walks read, and the hit
+    position (v0, e1, e2), current and previous vertices and filter normal
+    of each distinct committed triangle (120 B)."""
+    import torch
+
+    counts = geo_mod.WalkCounts.zeros(cfg.width * cfg.height, td)
+    out = geo_mod.geometry_pass_bvh(*args, counts=counts)
+    committed = torch.unique(out.visibility[out.visibility > 0]).numel()
+    fields = walk_bound(counts, 44 * cfg.width * cfg.height + 224 + 120 * committed)
+    return dict(fields, committed_tris=committed)
+
+
+def stress_geo_args(pt, td, cfg, dev):
+    """Geometry-pass inputs on a large scene: the orbit camera at frames 3
+    and 2 of the suite's sequence (current and previous), the light moved."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline import frame
+
+    cam, prev = orbit(pt, 3, dev), orbit(pt, 2, dev)
+    light = pt.Light.default(dev)
+    view, proj = frame.camera_matrices(cam, cfg)
+    view_p, proj_p = frame.camera_matrices(prev, cfg)
+    return (td, td.lut, cam.position, cam.rotation, light.position,
+            light.position + torch.tensor([0.5, 0.0, 0.0], device=dev),
+            light.color, light.color * 0.5, view, proj, view_p, proj_p, cfg)
+
+
+def segments_agree(wf, td, cfg, cam, light, frame_idx, label: str, only=None):
+    """The segments of every sample of a frame (those in ``only``, or all),
+    kernel against plain on the same input ray state; returns (max abs
+    error, plain ms per segment)."""
+    import torch
+
+    n = cfg.width * cfg.height
+    rays = wf.RayState.empty(n, td.lut.device)
+    err, plain_s, launches = 0.0, 0.0, 0
+    for batch in range(cfg.sample_batches):
+        for sample in range(cfg.spp):
+            for seg in range(cfg.max_bounces):
+                if only is not None and seg not in only:
+                    wf.trace_segment(rays, seg, batch, sample, td, cam.position, cam.rotation,
+                                     light, frame_idx, cfg)
+                    continue
+                plain = wf.RayState(*(t.clone() for t in rays))
+                wf.trace_segment(rays, seg, batch, sample, td, cam.position, cam.rotation,
+                                 light, frame_idx, cfg)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                wf.trace_segment_plain(plain, seg, batch, sample, td, cam.position,
+                                       cam.rotation, light, frame_idx, cfg)
+                torch.cuda.synchronize()
+                plain_s += time.perf_counter() - t0
+                launches += 1
+                err = max(err, max_abs(rays.f, plain.f))
+                bad = max(share_outside(rays.f, plain.f, 1e-5, 1e-5),
+                          (rays.state != plain.state).double().mean().item(),
+                          (rays.alive != plain.alive).double().mean().item())
+                if bad > 1e-4:
+                    check(False, f"trace_segment {label} b{batch} s{sample} seg {seg} "
+                                 "within 1e-5 on >= 99.99% of the ray state")
+    print(f"trace_segment {label}: {launches} segments against the plain version, "
+          f"max_abs {err:.3e}", flush=True)
+    check(True, f"trace_segment {label}: each checked segment's ray state within 1e-5")
+    return err, 1e3 * plain_s / launches
+
+
+def frame_segments(wf, td, cfg, cam, light, frame_idx, counts=None, live=None):
+    """One 1-sample frame's segments on the card. With ``live`` (a list),
+    appends the number of live rays before each launch (a host read)."""
+    import torch
+
+    n = cfg.width * cfg.height
+    rays = wf.RayState.empty(n, td.lut.device)
+    for seg in range(cfg.max_bounces):
+        if live is not None:
+            live.append(n if seg == 0 else int(rays.alive.sum(dtype=torch.int64).item()))
+        wf.trace_segment(rays, seg, 0, 0, td, cam.position, cam.rotation, light, frame_idx,
+                         cfg, counts=counts)
+
+
+def segment_record_fields(wf, td, cfg, cam, light, frame_idx) -> dict:
+    """ms per launch of one frame's segments, and the frame's bound over
+    its launches: the kernel's counts, the ray-state bytes (a live ray
+    reads 52 and writes 56 bytes, a dead one reads its alive flag, segment
+    0 writes 56 per ray), the 18 parameters of each launch, and once per
+    frame the rows the walks read, with the hit position, normal and
+    albedo (60 B) of each triangle tested (a superset of those hit)."""
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.geometry import (
+        WalkCounts,
+    )
+
+    n = cfg.width * cfg.height
+    counts = WalkCounts.zeros(n, td)
+    live = []
+    frame_segments(wf, td, cfg, cam, light, frame_idx, counts, live)
+    segs = cfg.max_bounces
+    state_bytes = 56 * n + sum(108 * k + 4 * n for k in live[1:])
+    fields = walk_bound(counts, state_bytes + 72 * segs, per_tri=60)
+    fields["bound_ms"] /= segs
+    ms = time_ms(lambda: frame_segments(wf, td, cfg, cam, light, frame_idx), 3, warmup=1) / segs
+    return dict(ms=ms, live_rays=live, **fields)
+
+
+def large_kernel_phase(pt, dev, records) -> None:
+    """The large-scene kernels against their plain versions and against the
+    dense kernels; adds the records of geometry_bvh, trace_segment and
+    shadow_segment."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
+        camera as cam_ops,
+        pathtrace as plain_pt,
+        rng as rng_ops,
+    )
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import (
+        geometry as geo_mod,
+        pathtrace as pt_mod,
+        wavefront as wf,
+    )
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import procedural
+
+    t_phase = time.time()
+    w, h = BENCH_SIZE
+    scenes = {s: pt.precompute_triangle_data(
+        pt.Scene.from_arrays(*procedural.subdivided_cornell(s)), dev) for s in (2, 3, 32, 88)}
+    # the dense kernels' scenes, from the Cornell box up to 288 triangles
+    small_scenes = {32: pt.precompute_triangle_data(pt.Scene.cornell_box(), dev),
+                    128: scenes[2], 288: scenes[3]}
+    cam, light = orbit(pt, 3, dev), pt.Light.default(dev)
+    base = pt.RenderConfig(width=w, height=h)
+    path_a = dataclasses.replace(base, **LARGE["A"][1])
+
+    def geometry_agrees(args, label):
+        """geometry_bvh against its plain version on every plane; returns
+        (max abs error, plain ms)."""
+        k = geo_mod.geometry_pass_bvh(*args, emit_albedo=True)
+        t0 = time.perf_counter()
+        p = geo_mod.geometry_pass_plain(*args, emit_albedo=True)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        err = max(close_share(f"geometry_bvh {name} {label}", getattr(k, name).float(),
+                              getattr(p, name).float(), 1e-5) for name in k._fields)
+        return err, plain_ms
+
+    # -- LBVH geometry kernel: plain version at path A's and path B's
+    # shapes, and the dense kernel from 32 to 288 triangles --
+    td = scenes[32]
+    args = stress_geo_args(pt, td, path_a, dev)
+    err, plain_ms = geometry_agrees(args, f"32768 tris {w}x{h}")
+    rec = record("geometry_bvh", "geometry.cu", "ops/pallas/geometry.py:388", max_abs_err=err,
+                 ms=time_ms(lambda: geo_mod.geometry_pass_bvh(*args), 20), plain_ms=plain_ms,
+                 **geometry_bvh_bound(geo_mod, args, td, path_a))
+    records.append(rec)
+    td88 = scenes[88]
+    args88 = stress_geo_args(pt, td88, base, dev)
+    err, plain_ms = geometry_agrees(args88, f"247808 tris {w}x{h}")
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    rec["modes"].append(dict(
+        mode=f"247808 triangles (path B), {w}x{h}", max_abs_err=err, plain_ms=plain_ms,
+        ms=time_ms(lambda: geo_mod.geometry_pass_bvh(*args88), 20),
+        **geometry_bvh_bound(geo_mod, args88, td88, base)))
+    for t, tds in small_scenes.items():
+        args_s = stress_geo_args(pt, tds, base, dev)
+        dense = geo_mod.geometry_pass(*args_s, emit_albedo=True)
+        bvh = geo_mod.geometry_pass_bvh(*args_s, emit_albedo=True)
+        torch.cuda.synchronize()
+        same = all(torch.equal(getattr(dense, f), getattr(bvh, f)) for f in dense._fields)
+        mode = dict(mode=f"{t} triangles, {w}x{h}, against the dense kernel", max_abs_err=0.0,
+                    ms=time_ms(lambda: geo_mod.geometry_pass_bvh(*args_s), 20),
+                    dense_kernel_ms=time_ms(lambda: geo_mod.geometry_pass(*args_s), 20))
+        print(f"geometry_bvh vs dense geometry kernel, {t} tris {w}x{h}: bit-equal {same}; "
+              f"{mode['ms']:.4f} ms LBVH, {mode['dense_kernel_ms']:.4f} ms dense")
+        check(same, f"geometry_bvh equals the dense geometry kernel bit for bit on {t} triangles")
+        rec["modes"].append(mode)
+
+    # -- segment tracer: plain version segment by segment at path A's
+    # shapes, at path B's (segments 0, 1 and 31) and in further modes at
+    # 480x270; the dense kernel from 32 to 288 triangles --
+    err, plain_ms = segments_agree(wf, td, path_a, cam, light, 5, f"path A {w}x{h}")
+    rec = record("trace_segment", "wavefront.cu", "ops/pallas/wavefront.py:300",
+                 max_abs_err=err, plain_ms=plain_ms,
+                 **segment_record_fields(wf, td, path_a, cam, light, 5))
+    records.append(rec)
+    err, plain_ms = segments_agree(wf, td88, base, cam, light, 5, f"path B {w}x{h}",
+                                   only=(0, 1, base.max_bounces - 1))
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    rec["modes"].append(dict(mode=f"247808 triangles (path B), 32 bounces, {w}x{h}, per launch",
+                             max_abs_err=err, plain_ms=plain_ms,
+                             **segment_record_fields(wf, td88, base, cam, light, 5)))
+    pw, ph = PLAIN_SIZE
+    small = pt.RenderConfig(width=pw, height=ph, max_bounces=8)
+    for label, over in (("nee", dict(nee=True)), ("rr_start_bounce=2", dict(rr_start_bounce=2)),
+                        ("spp=2 sample_batches=2", dict(spp=2, sample_batches=2)),
+                        ("nee rr=2 light_through_walls=False",
+                         dict(nee=True, rr_start_bounce=2, light_through_walls=False))):
+        c = dataclasses.replace(small, **over)
+        err, plain_ms = segments_agree(wf, td, c, cam, light, 5, f"{label} {pw}x{ph}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["modes"].append(dict(mode=f"{label}, 8 bounces, 32768 tris, {pw}x{ph}",
+                                 max_abs_err=err, plain_ms=plain_ms))
+    trace_modes = (("parity (32 bounces)", {}), ("path A levers", LARGE["A"][1]),
+                   ("nee", dict(nee=True, max_bounces=8)),
+                   ("spp=2 sample_batches=2", dict(spp=2, sample_batches=2, max_bounces=8)))
+    for t, tds in small_scenes.items():
+        for label, over in trace_modes if t == 288 else trace_modes[:2]:
+            c = dataclasses.replace(base, **over)
+            a = pt_mod.path_trace_pass(tds, cam.position, light, 5, c, cam.rotation)
+            b = wf.path_trace_wavefront(tds, cam.position, light, 5, c, cam.rotation)
+            torch.cuda.synchronize()
+            mode = dict(
+                mode=f"{t} triangles, {label}, {w}x{h}, against the dense trace kernel",
+                max_abs_err=0.0, launches=c.max_bounces * c.spp * c.sample_batches,
+                frame_ms=time_ms(lambda: wf.path_trace_wavefront(tds, cam.position, light, 5, c,
+                                                                cam.rotation), 3, warmup=1),
+                dense_kernel_ms=time_ms(lambda: pt_mod.path_trace_pass(
+                    tds, cam.position, light, 5, c, cam.rotation), 3, warmup=1))
+            print(f"segment tracer vs trace kernel, {t} tris {label} {w}x{h}: bit-equal "
+                  f"{torch.equal(a, b)}, max_abs {max_abs(a, b):.3e}; {mode['frame_ms']:.3f} ms "
+                  f"segments, {mode['dense_kernel_ms']:.3f} ms dense")
+            check(torch.equal(a, b), f"segment tracer equals the trace kernel on {t} triangles "
+                                     f"({label})")
+            rec["modes"].append(mode)
+
+    # -- shadow segment: path C's bounce-0 shadow rays at 1920x1080 --
+    path_c = dataclasses.replace(base, **LARGE["C"][1])
+    geo = geo_mod.geometry_pass_bvh(*stress_geo_args(pt, td, path_c, dev), emit_albedo=True)
+    n = w * h
+    idx = torch.arange(n, device=dev)
+    px, py = idx % w, torch.div(idx, w, rounding_mode="floor")
+    state, gx, gy = rng_ops.sample_jitter(px, py, 5, 0, 0)
+    dirs = cam_ops.pixel_rays(px, py, w, h, path_c.fov, jitter_x=0.0 * gx, jitter_y=0.0 * gy,
+                              rotation=cam.rotation)
+    carry = plain_pt.primary_carry(
+        cam.position.expand(n, 3), dirs, state, geo.visibility.reshape(n),
+        geo.world_pos.reshape(n, 3), geo.normal.reshape(n, 3), geo.albedo.reshape(n, 3),
+        light.position, light.color * path_c.light_intensity, path_c, defer_nee_shadow=True)
+    o = carry[0]
+    w_l, s_t, _, mask = carry[6]
+    cap = torch.where(mask, s_t, torch.zeros_like(s_t))
+    k = wf.shadow_segment(o, w_l, cap, mask, td, path_c)
+    t0 = time.perf_counter()
+    p = wf.shadow_segment_plain(o, w_l, cap, mask, td, path_c)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    bad = (k != p).double().mean().item()
+    print(f"shadow_segment path C {w}x{h}: {int(mask.sum().item())} sampling lanes, "
+          f"{int(p.sum().item())} occluded, mismatch share {bad:.3e}, bit-equal {torch.equal(k, p)}")
+    check(bad <= 1e-4, "shadow_segment matches its plain version on >= 99.99% of lanes")
+    counts = geo_mod.WalkCounts.zeros(n, td)
+    wf.shadow_segment(o, w_l, cap, mask, td, path_c, counts=counts)
+    # per lane: origin, direction and cap (28 B) and the mask read, the flag written
+    records.append(record(
+        "shadow_segment", "wavefront.cu", "ops/pallas/wavefront.py:487",
+        max_abs_err=float((k != p).any().item()),
+        ms=time_ms(lambda: wf.shadow_segment(o, w_l, cap, mask, td, path_c), 20),
+        plain_ms=plain_ms, **walk_bound(counts, 36 * n)))
+    print(f"large-scene kernel phase: {time.time() - t_phase:.1f} s", flush=True)
+
+
+def large_sequence_phase(pt, dev, path: str) -> dict:
+    """Frames of a large-scene path through Renderer.step() on both routes
+    under the suite's orbit camera; returns the kernel launch counts."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import LAUNCHES
+
+    splits, over, frames, (w, h) = LARGE[path]
+    t_phase = time.time()
+    r_k = presets.cornell_stress(splits=splits, device=dev, width=w, height=h, **over)
+    r_p = presets.cornell_stress(splits=splits, device=dev, width=w, height=h, backend="xla",
+                                 **over)
+    LAUNCHES.clear()
+    for f in range(frames):
+        r_k.camera = r_p.camera = orbit(pt, f, dev)
+        a = r_k.step()
+        b = r_p.step()
+        torch.cuda.synchronize()
+        bad = share_outside(a, b, 1e-3)
+        mean = (a - b).abs().mean().item()
+        finite = bool(torch.isfinite(a).all().item() and torch.isfinite(b).all().item())
+        print(f"path {path} frame {f}: kernel vs plain max_abs {max_abs(a, b):.3e}, "
+              f"share > 1e-3 {bad:.3e}, mean abs {mean:.3e}, finite {finite}")
+        check(finite and tuple(a.shape) == (h, w, 3), f"path {path} frame {f} finite, shape (H, W, 3)")
+        check(bad <= 0.01 and mean <= 1e-4, f"path {path} frame {f} kernel route within 1e-3 on >= 99%")
+    counts = dict(LAUNCHES)
+    expected = {k: frames * v for k, v in LARGE_PER_FRAME[path].items()}
+    print(f"path {path} ({r_k.tri_data.num_triangles} tris, {w}x{h}) launch counts over "
+          f"{frames} frames: {counts}; {time.time() - t_phase:.1f} s")
+    check(counts == expected, f"path {path} launch counts {expected}")
+    return counts
+
+
+def large_timing_phase(pt, dev, card: str) -> None:
+    """presets.cornell_stress() with its defaults and at BVH_MIN_TRIANGLES
+    (splits=2) on the kernel route, then ms/frame of paths A, B and C at
+    1920x1080 on the kernel route, and of path A's plain route once."""
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets
+
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import LAUNCHES
+
+    t_phase = time.time()
+    w, h = BENCH_SIZE
+    # the preset's own default (512 triangles, beyond the dense kernels'
+    # tables) and 128 triangles, where the LBVH takes over
+    for over in ({}, dict(splits=2)):
+        r = presets.cornell_stress(device=dev, **over)
+        LAUNCHES.clear()
+        img = r.step()
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        print(f"cornell_stress({over}) ({r.tri_data.num_triangles} tris, "
+              f"{r.cfg.width}x{r.cfg.height}): launch counts {counts}")
+        check(bool(torch.isfinite(img).all().item()) and counts.get("geometry_bvh") == 1
+              and counts.get("trace_segment") == r.cfg.max_bounces,
+              f"cornell_stress({over}) renders on the kernel route through the LBVH kernels")
+    for path, backend, reps, warmup in (("A", "auto", 10, 2), ("B", "auto", 5, 2),
+                                        ("C", "auto", 10, 2), ("A", "xla", 1, 0)):
+        splits, over, _, _ = LARGE[path]
+        r = presets.cornell_stress(splits=splits, device=dev, width=w, height=h, backend=backend,
+                                   **over)
+        r.camera = orbit(pt, 0, dev)
+        ms = time_ms(r.step, reps, warmup=warmup)
+        route = "kernels" if backend == "auto" else "plain"
+        print(f"ms/frame path {path} ({r.tri_data.num_triangles} tris) {w}x{h} {route}: "
+              f"{ms:.3f} ({card})")
+    print(f"large-scene timing phase: {time.time() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -567,10 +966,14 @@ def main() -> int:
         records = kernel_phase(pt, (geo_mod, pt_mod, at_mod), dev)
         svgf_kernel_phase(pt, (geo_mod, pt_mod, at_mod), dev, records)
         golden_phase(pt, dev)
+        large_kernel_phase(pt, dev, records)
         paths = {"default": sequence_phase(pt, dev)}
         for name in PRESETS:
             paths[name] = preset_sequence_phase(pt, dev, name)
+        for path in LARGE:
+            paths[path] = large_sequence_phase(pt, dev, path)
         timing_phase(pt, dev, card)
+        large_timing_phase(pt, dev, card)
     except (PhaseError, RuntimeError, ValueError, subprocess.SubprocessError) as exc:
         print(f"chip_smoke: failed: {exc}", file=sys.stderr)
         return 1
@@ -582,7 +985,9 @@ def main() -> int:
         return 1
     order = ["name", "route", "source", "replaces", "launches", "launches_by_path",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "modes"]
-    print(json.dumps({"kernels": [{k: r[k] for k in order} for r in records]}))
+    order += ["tri_tests", "box_tests", "node_rows_read", "tri_rows_read", "committed_tris",
+              "live_rays"]
+    print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in records]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

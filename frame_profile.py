@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of a frame goes, on one CUDA card.
 
-    python3 frame_profile.py [--configs default,default_1080p,quality,interactive]
+    python3 frame_profile.py [--configs default,default_1080p,quality,interactive,
+                                        stress32,stress88]
                              [--out frame_profiles]
 
 For each configuration, renders 5 warm-up frames through
@@ -17,7 +18,10 @@ Exits non-zero if a configuration fails to run.
 Configurations: ``default`` is ``RenderConfig()`` (1000x800), and
 ``default_1080p`` the same at 1920x1080; ``quality`` and ``interactive`` are
 the ``cornell_box_quality`` and ``cornell_box_interactive`` presets
-(1920x1080).
+(1920x1080). ``stress32`` and ``stress88`` are the large scenes of
+``presets.cornell_stress`` at 1920x1080 seen by the orbit camera at azimuth
+0: 32,768 triangles with 8 bounces, Russian roulette from bounce 2 and
+adaptive alpha, and 247,808 triangles in the default parity config.
 """
 
 from __future__ import annotations
@@ -32,6 +36,11 @@ import time
 
 FRAMES = 20
 WARMUP = 5
+# large scenes: (splits, config overrides)
+STRESS = {
+    "stress32": (32, dict(max_bounces=8, rr_start_bounce=2, adaptive_alpha=True)),
+    "stress88": (88, {}),
+}
 
 
 def _renderer(pt, name: str):
@@ -40,6 +49,11 @@ def _renderer(pt, name: str):
         return pt.Renderer(pt.Scene.cornell_box(), pt.RenderConfig(**size))
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets
 
+    if name in STRESS:
+        splits, overrides = STRESS[name]
+        r = presets.cornell_stress(splits=splits, **overrides)
+        r.camera = pt.Camera.orbit([0.0, 1.0, 0.0], 6.0, 0.0, 1.0, device=r.device)
+        return r
     return getattr(presets, f"cornell_box_{name}")()
 
 
@@ -103,7 +117,8 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--configs", default="default,default_1080p,quality,interactive")
+    parser.add_argument("--configs",
+                        default="default,default_1080p,quality,interactive,stress32,stress88")
     parser.add_argument("--out", default="frame_profiles")
     args = parser.parse_args()
     if not torch.cuda.is_available():

@@ -6,8 +6,10 @@ The PyTorch port of ``real_time_path_tracing_with_spatiotemporal_filtering_tpu``
 (visibility G-buffer, temporal gradient, path trace, 9x a-trous wavelet
 filter with temporal EMA), and the SVGF and estimator extensions on them,
 run through hand-written CUDA kernels on a CUDA device and through their
-plain PyTorch versions on the CPU. Preset renderers are in ``models``. This
-package imports torch and numpy, never jax.
+plain PyTorch versions on the CPU; scenes of ops/intersect.BVH_MIN_TRIANGLES
+and more walk an LBVH (scene/lbvh.py) through a segment tracer. Preset
+renderers are in ``models``. This package imports torch and numpy, never
+jax.
 
 Public API (the JAX package's names):
     RenderConfig     -- every tunable the reference hardcodes (common.h etc.)

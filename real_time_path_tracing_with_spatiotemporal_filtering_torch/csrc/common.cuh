@@ -1,6 +1,7 @@
 // Device helpers shared by the geometry and path-trace kernels: float3
 // arithmetic in the plain PyTorch version's operation order, the PCG
-// generator of ops/rng.py, and the nearest-hit loop of ops/intersect.py.
+// generator of ops/rng.py, and the ray/triangle test and dense nearest-hit
+// loop of ops/intersect.py.
 //
 // Every expression here is written in the order the plain version
 // evaluates it (dot products as (a0*b0 + a1*b1) + a2*b2, no reassociation).
@@ -105,20 +106,37 @@ struct Hit {
   float t, u, v;
 };
 
-// One ray/triangle test against a table row: the hit distance t and the
-// barycentrics u, v, and whether the hit is valid (ops/intersect.py).
-__device__ __forceinline__ bool tri_test(const float* r, V3 o, V3 d, float t_max, float eps,
-                                         float& t, float& u, float& v) {
-  V3 n = load3(r + 9), n1 = load3(r + 13), n2 = load3(r + 17);
+// Work counted by the kernels' counting instantiations (for the bounds):
+// ray/triangle tests and ray/box slab tests, and (LBVH walks) a 1 in
+// seen_node[i] / seen_tri[p] for every node row and triangle-test row read.
+struct Counts {
+  int tri, box;
+  int* seen_node;
+  int* seen_tri;
+};
+
+// One ray/triangle test from the plane constants n, d0, n1, d1, n2, d2:
+// the hit distance t and the barycentrics u, v, and whether the hit is
+// valid (ops/intersect.py).
+__device__ __forceinline__ bool tri_test(V3 n, float d0, V3 n1, float d1, V3 n2, float d2, V3 o,
+                                         V3 d, float t_max, float eps, float& t, float& u,
+                                         float& v) {
   float no = dot(o, n), nd = dot(d, n);
   float n1o = dot(o, n1), n1d = dot(d, n1);
   float n2o = dot(o, n2), n2d = dot(d, n2);
   bool parallel = fabsf(nd) < eps;
   float safe_nd = parallel ? eps : nd;
-  t = (r[12] - no) / safe_nd;
-  u = n1o + t * n1d + r[16];
-  v = n2o + t * n2d + r[20];
+  t = (d0 - no) / safe_nd;
+  u = n1o + t * n1d + d1;
+  v = n2o + t * n2d + d2;
   return !parallel && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f && t <= t_max;
+}
+
+// The same test against a table row.
+__device__ __forceinline__ bool tri_test(const float* r, V3 o, V3 d, float t_max, float eps,
+                                         float& t, float& u, float& v) {
+  return tri_test(load3(r + 9), r[12], load3(r + 13), r[16], load3(r + 17), r[20], o, d, t_max,
+                  eps, t, u, v);
 }
 
 __device__ __forceinline__ Hit nearest_hit(const float* tab, int stride, int num_tris, V3 o, V3 d,

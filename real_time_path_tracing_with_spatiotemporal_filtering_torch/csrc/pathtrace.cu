@@ -4,7 +4,8 @@
 // (real_time_path_tracing_with_spatiotemporal_filtering_tpu/ops/pallas/pathtrace.py:1716).
 // It computes ops/pathtrace.path_trace_pass: for each of sample_batches
 // batches a per-pixel PCG seed, then spp samples, each a Gaussian AA jitter
-// and a path of up to max_bounces segments of nearest hit, sphere light
+// and a path of up to max_bounces segments (bounce.cuh, shared with the
+// segment tracer of wavefront.cu) of nearest hit, sphere light
 // (ignoring occluders unless light_through_walls is off or NEE is on),
 // first-hit dimming, normal-keyed albedo, unit-sphere diffuse bounce and
 // sky. The optional estimators follow the plain version draw for draw:
@@ -36,143 +37,29 @@
 // H100: the bounds make the quality trace ~1% faster and the parity trace
 // ~6% slower).
 
-#include "common.cuh"
+#include "bounce.cuh"
 
 namespace {
 
 using namespace ptsf;
 
-constexpr int kStride = 27;  // 21 intersect | unit normal 3 | albedo 3
-constexpr float kInvPi = (float)(1.0 / 3.14159265);
-
-struct TraceArgs {
-  int width, height, frame, max_bounces, spp, batches;
-  float slope, aa_sigma, ray_eps, t_max, eps, light_r, light_r2, first_dim;
-  int light_through_walls, rr_start, truncate;
-  float rr_min, rr_max;
-};
-
-// checkRayLightIntersection (ops/intersect.ray_sphere)
-__device__ __forceinline__ bool ray_sphere(V3 o, V3 d, V3 center, float r2, float& t_out) {
-  V3 oc = sub(o, center);
-  float a = dot(d, d);
-  float b = 2.0f * dot(oc, d);
-  float c = dot(oc, oc) - r2;
-  float disc = b * b - 4.0f * a * c;
-  float sq = sqrtf(fmaxf(disc, 0.0f));
-  float t1 = (-b - sq) / (2.0f * a);
-  float t2 = (-b + sq) / (2.0f * a);
-  float t = t1 > 0.0f ? t1 : t2;
-  bool hit = disc >= 0.0f && t > 0.0f;
-  t_out = hit ? t : 0.0f;
-  return hit;
-}
-
-// skyColor (ops/shading.sky_color)
-__device__ __forceinline__ V3 sky(V3 d) {
-  float y = d.y;
-  if (!(y > 0.0f)) return {0.03f, 0.03f, 0.03f};
-  float s = 1.0f - y;
-  return {s * 1.0f + y * 0.25f, s * 1.0f + y * 0.5f, s * 1.0f + y * 1.0f};
-}
-
-// Next-event estimation at the bounce vertex o (ops/pathtrace._nee_sample):
-// draws two uniforms, and returns true with the banked radiance in ``bank``
-// when the light sample is unoccluded.
-template <bool kCount>
-__device__ __forceinline__ bool nee_sample(const float* tab, int num_tris, V3 o, V3 n_ff,
-                                           V3 accum, uint32_t& state, V3 light_pos,
-                                           V3 light_hdr, const TraceArgs& a, V3& bank,
-                                           int& tests) {
-  V3 to_l = sub(light_pos, o);
-  float safe_dist = fmaxf(norm(to_l), 1e-20f);
-  V3 wc = div(to_l, safe_dist);
-  float sin_max = fminf(fmaxf(a.light_r / safe_dist, 0.0f), 1.0f);
-  float cos_max = sqrtf(fmaxf(1.0f - sin_max * sin_max, 0.0f));
-  float u1 = pcg_step(state);
-  float u2 = pcg_step(state);
-  float cos_t = 1.0f - u1 * (1.0f - cos_max);
-  float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
-  float phi = kTwoPi * u2;
-  V3 axis = fabsf(wc.x) > 0.9f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
-  V3 tang = cross(axis, wc);
-  tang = div(tang, fmaxf(norm(tang), 1e-20f));
-  V3 bitang = cross(wc, tang);
-  V3 w_l = add(add(scale(cos_t, wc), scale(sin_t * cosf(phi), tang)),
-               scale(sin_t * sinf(phi), bitang));
-  float cos_x = dot(n_ff, w_l);
-  float s_t;
-  bool s_hit = ray_sphere(o, w_l, light_pos, a.light_r2, s_t);
-  // lit = cos_x > 0 & s_hit & (no triangle hit | s_t < nearest t)
-  if (!(cos_x > 0.0f) || !s_hit) return false;
-  if (any_hit_within<kCount>(tab, kStride, num_tris, o, w_l, s_t, a.t_max, a.eps, tests)) {
-    return false;
-  }
-  float omega = kTwoPi * (1.0f - cos_max);
-  float gain = cos_x * omega * kInvPi;
-  bank = scale(gain, mul(accum, light_hdr));
-  return true;
-}
-
 // One path from the camera (ops/pathtrace.trace_paths); ``state`` is the
 // post-jitter state, passed by value as GLSL does (raytrace.comp.glsl:200).
-// kNee / kRr compile NEE and Russian roulette in or out, kCount the count
-// of triangle tests, so that the parity mode keeps its register count.
 template <bool kNee, bool kRr, bool kCount>
-__device__ __forceinline__ V3 trace_path(const float* tab, int num_tris, V3 o, V3 d,
-                                         uint32_t state, V3 light_pos, V3 light_hdr,
-                                         const TraceArgs& a, int& tests) {
-  V3 accum = {1.0f, 1.0f, 1.0f};
-  V3 result = {0.0f, 0.0f, 0.0f};
+__device__ __forceinline__ V3 trace_path(const DenseTable& sc, V3 o, V3 d, uint32_t state,
+                                         V3 light_pos, V3 light_hdr, const TraceArgs& a,
+                                         Counts& c) {
+  PathState p = {o, d, {1.0f, 1.0f, 1.0f}, {0.0f, 0.0f, 0.0f}, state};
   bool alive = true;
   for (int seg = 0; seg < a.max_bounces; ++seg) {
-    Hit h = nearest_hit(tab, kStride, num_tris, o, d, a.t_max, a.eps);
-    if (kCount) tests += num_tris;
-    float light_t;
-    bool light_hit = ray_sphere(o, d, light_pos, a.light_r2, light_t);
-    if (!a.light_through_walls || kNee) light_hit = light_hit && (!h.hit || light_t < h.t);
-    if (light_hit) {  // light termination, checked first (raytrace:226-235)
-      // under NEE only the camera segment adds the emission
-      if (!kNee || seg == 0) {
-        float dim = seg == 0 ? a.first_dim : 1.0f;
-        result = scale(dim, mul(accum, light_hdr));
-      }
+    if (!bounce<kNee, kRr, kCount>(sc, seg, p, light_pos, light_hdr, a, c)) {
       alive = false;
       break;
-    }
-    if (!h.hit) {  // sky termination (raytrace:263-268); NEE adds to its bank
-      V3 sky_c = mul(accum, sky(d));
-      result = kNee ? add(result, sky_c) : sky_c;
-      alive = false;
-      break;
-    }
-    // diffuse bounce (raytrace:238-262)
-    const float* row = tab + h.prim * kStride;
-    accum = mul(accum, load3(row + 24));
-    V3 n = load3(row + 21);
-    V3 n_ff = dot(d, n) < 0.0f ? n : neg(n);
-    V3 hit_pos = hit_position(tab, kStride, h);
-    o = add(hit_pos, scale(a.ray_eps, n_ff));
-    V3 nd = add(n_ff, random_unit_sphere(state));
-    d = div(nd, norm(nd));
-    V3 bank;
-    if (kNee && nee_sample<kCount>(tab, num_tris, o, n_ff, accum, state, light_pos, light_hdr, a, bank,
-                            tests)) {
-      result = add(result, bank);
-    }
-    if (kRr && seg >= a.rr_start) {  // Russian roulette
-      float u = pcg_step(state);
-      float p = fminf(fmaxf(fmaxf(fmaxf(accum.x, accum.y), accum.z), a.rr_min), a.rr_max);
-      if (!(u < p)) {  // killed: keeps its result, takes no fall-through
-        alive = false;
-        break;
-      }
-      accum = div(accum, p);
     }
   }
   // loop fall-through: surviving paths return the bare albedo product,
   // unless NEE or truncate_radiance drops it
-  return alive && !kNee && !a.truncate ? accum : result;
+  return alive && !kNee && !a.truncate ? p.accum : p.result;
 }
 
 // The body of both kernels: one pixel. params: cam[0:3] rot[3:12]
@@ -186,7 +73,7 @@ __device__ __forceinline__ void trace_pixel(const float* __restrict__ table, int
   __shared__ float prm[18];
   int tid = threadIdx.y * blockDim.x + threadIdx.x;
   if (tid < 18) prm[tid] = params[tid];
-  stage_table(smem, table, num_tris * kStride);
+  stage_table(smem, table, num_tris * kTraceStride);
 
   int x = blockIdx.x * blockDim.x + threadIdx.x;
   int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -195,7 +82,8 @@ __device__ __forceinline__ void trace_pixel(const float* __restrict__ table, int
   V3 cam = load3(prm);
   V3 light_pos = load3(prm + 12);
   V3 light_hdr = load3(prm + 15);
-  int tests = 0;
+  DenseTable sc = {smem, num_tris};
+  Counts c = {0, 0};
   V3 total = {0.0f, 0.0f, 0.0f};
   const int batches = kMulti ? a.batches : 1;
   const int spp = kMulti ? a.spp : 1;
@@ -207,14 +95,14 @@ __device__ __forceinline__ void trace_pixel(const float* __restrict__ table, int
       random_gaussian(state, gx, gy);
       V3 d = pixel_ray(x, y, a.aa_sigma * gx, a.aa_sigma * gy, a.width, a.height, a.slope,
                        prm + 3);
-      summed = add(summed, trace_path<kNee, kRr, kCount>(smem, num_tris, cam, d, state, light_pos,
-                                                         light_hdr, a, tests));
+      summed = add(summed, trace_path<kNee, kRr, kCount>(sc, cam, d, state, light_pos, light_hdr,
+                                                         a, c));
     }
     total = add(total, div(summed, (float)spp));
   }
   int pix = y * a.width + x;
   store3(out + 3 * pix, div(total, (float)batches));
-  if (kCount) tests_out[pix] = tests;
+  if (kCount) tests_out[pix] = c.tri;
 }
 
 // One sample per pixel (spp = sample_batches = 1).
@@ -259,7 +147,7 @@ extern "C" int ptsf_trace(const float* table, int num_tris, const float* params,
                  rr_max};
   dim3 block(16, 16);
   dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  size_t smem = sizeof(float) * num_tris * kStride;
+  size_t smem = sizeof(float) * num_tris * kTraceStride;
   bool count = tests_out != nullptr;
   bool multi = spp != 1 || batches != 1;
   TraceFn kernel = nee ? (rr_start > 0 ? pick_trace<true, true>(count, multi)

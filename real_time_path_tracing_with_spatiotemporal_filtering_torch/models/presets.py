@@ -1,6 +1,7 @@
 """Preset renderer factories (the framework's model zoo), as in the JAX
 package. Each takes the config overrides of the JAX factories and the
-``device`` of :class:`Renderer` (None: the card when there is one)."""
+``device`` of :class:`Renderer` (None: the CUDA card, which must exist;
+``"cpu"`` runs the plain versions)."""
 
 from __future__ import annotations
 
@@ -55,9 +56,10 @@ def cornell_box_interactive(device=None, **overrides) -> Renderer:
 
 def cornell_stress(splits: int = 4, device=None, **overrides) -> Renderer:
     """Traversal stress: each Cornell quad subdivided splits^2-fold
-    (32 * splits**2 triangles, identical image). The kernel route holds at
-    most the triangles its shared-memory tables take (ops/cuda/); beyond
-    that it raises, and backend="xla" runs the plain route."""
+    (32 * splits**2 triangles, identical image). From
+    ops/intersect.BVH_MIN_TRIANGLES on (splits >= 2) both routes walk the
+    LBVH, and the kernel route runs the LBVH geometry kernel and the
+    segment tracer."""
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import (
         procedural,
     )

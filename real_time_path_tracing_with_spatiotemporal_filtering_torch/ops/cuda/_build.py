@@ -131,6 +131,20 @@ def _declare(lib) -> None:
         # cur_cons, out, age_out, width, height, alpha_min, reset_lam,
         # age_cap, adaptive, frame, stream
         "ptsf_temporal_blend_ramp": [p, p, p, p, p, p, p, p, p, p, i, i, f, f, f, i, i, p],
+        # nodes, tris, v0, e1, e2, lut_normals, lut, lut_prev, params, width,
+        # height, slope, t_max, eps, vis, depth, normal, lam, prev_y, prev_x,
+        # world, albedo, out_albedo (null: none), counts, seen_node,
+        # seen_tri (all three null: not counted), stream
+        "ptsf_geometry_bvh": [p] * 9 + [i, i, f, f, f] + [p] * 12 + [p],
+        # nodes, tris, v0, e1, e2, normals, albedo, params, n, width, height,
+        # frame, batch, sample, seg, slope, aa_sigma, ray_eps, t_max, eps,
+        # light_r, light_r2, first_dim, light_through_walls, nee, rr_start,
+        # rr_min, rr_max, rays, state, alive, counts, seen_node, seen_tri
+        # (all three null: not counted), stream
+        "ptsf_trace_segment": [p] * 8 + [i] * 7 + [f] * 8 + [i] * 3 + [f, f] + [p] * 6 + [p],
+        # nodes, tris, planes, mask, n, t_max, eps, occluded, counts,
+        # seen_node, seen_tri, stream
+        "ptsf_shadow_segment": [p, p, p, p, i, f, f, p, p, p, p, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

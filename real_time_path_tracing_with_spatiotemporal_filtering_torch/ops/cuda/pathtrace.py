@@ -36,7 +36,7 @@ def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation, tests
     if t > MAX_TRIANGLES:
         raise NotImplementedError(
             f"{t} triangles exceed the trace kernel's shared-memory table "
-            f"({MAX_TRIANGLES}); large scenes are ROADMAP Queue 1 item 7"
+            f"({MAX_TRIANGLES}); ops/cuda/wavefront.path_trace_wavefront takes any scene"
         )
     planes = tri_data.planes
     table = torch.cat(

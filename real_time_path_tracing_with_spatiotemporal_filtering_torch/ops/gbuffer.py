@@ -47,8 +47,8 @@ def visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=None) -> GBu
     dirs = cam_ops.pixel_rays(px, py, w, h, cfg.fov, rotation=rotation)
     origins = camera_pos.expand(h, w, 3)
 
-    rec = intersect.nearest_hit(
-        tri_data.planes, origins, dirs, t_max=cfg.t_max, eps=cfg.intersect_eps
+    rec = intersect.scene_nearest_hit(
+        tri_data, origins, dirs, t_max=cfg.t_max, eps=cfg.intersect_eps
     )
     hit = rec.hit[..., None]
     world_pos = intersect.hit_position(tri_data.planes, rec)

@@ -3,9 +3,10 @@
 Behavioral re-derivation of the reference's megakernel
 (raytrace.comp.glsl:200-344) as a vectorized bounce loop: every pixel's ray
 advances in lockstep through ``max_bounces`` segments with an alive mask,
-and each bounce's ray/scene query is the dense nearest-hit test
-(ops/intersect.py). The CUDA tracer (csrc/pathtrace.cu) runs the same
-arithmetic with one thread per pixel.
+and each bounce's ray/scene query is ops/intersect.scene_nearest_hit (the
+dense test, or the LBVH walk on large scenes). The CUDA tracers
+(csrc/pathtrace.cu, one launch; csrc/wavefront.cu, one launch per segment)
+run the same arithmetic with one thread per pixel or ray.
 
 Reference quirks reproduced deliberately (cfg-gated where noted):
   * the sphere light is tested against the raw ray, ignoring occluders, so
@@ -46,13 +47,18 @@ _INV_PI = float(np.float32(1.0 / 3.14159265))
 
 
 def _nee_sample(o, n_ff, accum, state, tri_hit, tri_data, light_pos,
-                light_color_hdr, cfg):
+                light_color_hdr, cfg, defer=False):
     """Next-event estimation at the bounce vertex ``o`` (the offset hit
     point): sample the sphere light's solid-angle cone, shadow-test the
-    sample against the nearest triangle, and return (banked radiance
-    (..., 3), state). The estimator is accum * L_e * cos_x * Omega / pi
-    (f = albedo/pi is folded into accum, pdf = 1/Omega). The two cone draws
-    follow the bounce draws, so the path itself is the parity one."""
+    sample against the scene, and return (banked radiance (..., 3), state).
+    The estimator is accum * L_e * cos_x * Omega / pi (f = albedo/pi is
+    folded into accum, pdf = 1/Omega). The two cone draws follow the bounce
+    draws, so the path itself is the parity one.
+
+    ``defer``: skip the shadow test and return (w_l, s_t, bank, mask) in
+    place of the banked radiance -- the sample direction, the sphere-entry
+    distance, the contribution if unoccluded and the lanes that sampled --
+    for a separate shadow walk (ops/cuda/wavefront.shadow_segment)."""
     to_l = light_pos - o
     dist = cam_ops.norm3(to_l)
     safe_dist = torch.clamp_min(dist, 1e-20)
@@ -83,10 +89,15 @@ def _nee_sample(o, n_ff, accum, state, tri_hit, tri_data, light_pos,
     s_hit, s_t = intersect.ray_sphere(o, w_l, light_pos, cfg.light_radius)
     omega = rng_ops.TWO_PI * (1.0 - cos_max)
     gain = cos_x * omega * _INV_PI
-    rec_s = intersect.nearest_hit(
-        tri_data.planes, o, w_l, t_max=cfg.t_max, eps=cfg.intersect_eps
+    mask = tri_hit & (cos_x > 0.0) & s_hit
+    if defer:
+        bank = torch.where(mask[..., None], accum * light_color_hdr * gain[..., None],
+                           torch.zeros_like(accum))
+        return (w_l, s_t, bank, mask), state
+    occluded = intersect.scene_occluded(
+        tri_data, o, w_l, s_t, t_max=cfg.t_max, eps=cfg.intersect_eps, mask=mask
     )
-    lit = tri_hit & (cos_x > 0.0) & s_hit & (~rec_s.hit | (s_t < rec_s.t))
+    lit = mask & ~occluded
     bank = torch.where(
         lit[..., None], accum * light_color_hdr * gain[..., None],
         torch.zeros_like(accum),
@@ -96,10 +107,13 @@ def _nee_sample(o, n_ff, accum, state, tri_hit, tri_data, light_pos,
 
 def bounce_step(segment, o, d, accum, result, alive, state,
                 rec_hit, rec_t, hit_pos, n_geo, albedo,
-                light_pos, light_color_hdr, cfg, tri_data=None):
+                light_pos, light_color_hdr, cfg, tri_data=None,
+                defer_nee_shadow=False):
     """One bounce's light/shading/termination given the nearest-hit record.
     ``tri_data`` is needed only for cfg.nee (the shadow ray). Returns the
-    next (o, d, accum, result, alive, state) carry."""
+    next (o, d, accum, result, alive, state) carry; with cfg.nee and
+    ``defer_nee_shadow`` the NEE sample is not shadow-tested, and a 7th
+    element (w_l, s_t, bank, mask) carries it to a separate shadow walk."""
     light_hit, light_t = intersect.ray_sphere(o, d, light_pos, cfg.light_radius)
     if not cfg.light_through_walls or cfg.nee:
         # the light only terminates the path if it is closer than the
@@ -131,10 +145,14 @@ def bounce_step(segment, o, d, accum, result, alive, state,
     # Only lanes that actually bounced consumed randoms (raytrace:256-257).
     state = torch.where(tri_hit, new_state, state)
 
+    nee_info = None
     if cfg.nee:
         bank, state = _nee_sample(new_o, n_ff, accum, state, tri_hit, tri_data,
-                                  light_pos, light_color_hdr, cfg)
-        result = result + bank
+                                  light_pos, light_color_hdr, cfg, defer=defer_nee_shadow)
+        if defer_nee_shadow:
+            nee_info = bank
+        else:
+            result = result + bank
 
     # --- sky termination (raytrace.comp.glsl:263-268); ``d`` is the
     # bounced direction where tri_hit, but sky lanes did not bounce
@@ -156,24 +174,34 @@ def bounce_step(segment, o, d, accum, result, alive, state,
         survive = u < p
         accum = torch.where((tri_hit & survive)[..., None], accum / p[..., None], accum)
         tri_hit = tri_hit & survive
+    if nee_info is not None:
+        return o, d, accum, result, tri_hit, state, nee_info
     return o, d, accum, result, tri_hit, state
 
 
-def trace_paths(tri_data, light_pos, light_color_hdr, origins, dirs, rng_state, cfg):
+def trace_paths(tri_data, light_pos, light_color_hdr, origins, dirs, rng_state, cfg,
+                start_segment=0, initial_carry=None):
     """Trace one path per lane to termination.
 
     ``origins``/``dirs``: (..., 3); ``rng_state``: (...,) int64 PCG states
     (already advanced past the AA jitter draws). ``light_color_hdr`` is the
     HDR light color (base * cfg.light_intensity, raytrace.comp.glsl:281).
     Returns the per-lane radiance (..., 3).
+
+    ``start_segment``/``initial_carry``: resume the bounce loop from a
+    carry (cfg.gbuffer_primary: :func:`primary_carry` replays bounce 0
+    off the G-buffer and the loop starts at segment 1).
     """
-    o, d, state = origins, dirs, rng_state
-    accum = torch.ones_like(origins)
-    result = torch.zeros_like(origins)
-    alive = torch.ones(origins.shape[:-1], dtype=torch.bool, device=origins.device)
-    for segment in range(cfg.max_bounces):
-        rec = intersect.nearest_hit(
-            tri_data.planes, o, d, t_max=cfg.t_max, eps=cfg.intersect_eps
+    if initial_carry is None:
+        o, d, state = origins, dirs, rng_state
+        accum = torch.ones_like(origins)
+        result = torch.zeros_like(origins)
+        alive = torch.ones(origins.shape[:-1], dtype=torch.bool, device=origins.device)
+    else:
+        o, d, accum, result, alive, state = initial_carry
+    for segment in range(start_segment, cfg.max_bounces):
+        rec = intersect.scene_nearest_hit(
+            tri_data, o, d, t_max=cfg.t_max, eps=cfg.intersect_eps, mask=alive
         )
         n_geo = tri_data.normals[rec.prim]              # unflipped (T,3) gather
         albedo = tri_data.albedo[rec.prim]
@@ -191,7 +219,35 @@ def trace_paths(tri_data, light_pos, light_color_hdr, origins, dirs, rng_state, 
     return torch.where(alive[..., None], accum, result)
 
 
-def trace_pixels(tri_data, camera_pos, light, frame_idx, px, py, cfg, rotation=None):
+def primary_carry(origins, dirs, state, vis, world_pos, n_geo, albedo,
+                  light_pos, light_color_hdr, cfg, tri_data=None,
+                  defer_nee_shadow=False):
+    """Bounce-0 carry from G-buffer attributes (cfg.gbuffer_primary).
+
+    The visibility pass already traced the primary rays with the tracer's
+    own camera, so bounce 0's nearest hit is a lookup: ``vis`` (primID + 1,
+    0 = background), ``world_pos`` the hit position, ``n_geo`` the
+    unflipped triangle normal, ``albedo`` the hit albedo. ``state`` is past
+    the AA jitter draws and ``dirs`` are the CENTER rays (this mode has no
+    primary jitter; the result equals a full trace with cfg.aa_sigma = 0).
+    rec.t is rebuilt as dot(world_pos - o, d); it only feeds the light
+    ordering test of non-parity modes. Returns the carry after bounce 0 for
+    :func:`trace_paths` at start_segment=1; under cfg.nee, ``tri_data``
+    serves the shadow test, or ``defer_nee_shadow`` returns the shadow ray
+    as a 7th element (see :func:`bounce_step`)."""
+    rec_hit = vis > 0
+    rec_t = cam_ops.dot3(world_pos - origins, dirs)
+    return bounce_step(
+        0, origins, dirs, torch.ones_like(origins), torch.zeros_like(origins),
+        torch.ones(origins.shape[:-1], dtype=torch.bool, device=origins.device),
+        state, rec_hit, rec_t, world_pos, n_geo, albedo,
+        light_pos, light_color_hdr, cfg, tri_data=tri_data,
+        defer_nee_shadow=defer_nee_shadow,
+    )
+
+
+def trace_pixels(tri_data, camera_pos, light, frame_idx, px, py, cfg, rotation=None,
+                 primary=None):
     """Per-pixel seeds, AA jitter, spp loop, average
     (raytrace.comp.glsl:273-344) for explicit pixel-coordinate tensors.
 
@@ -199,8 +255,14 @@ def trace_pixels(tri_data, camera_pos, light, frame_idx, px, py, cfg, rotation=N
     shape; the output radiance has shape ``px.shape + (3,)``. Seeds and
     rays are pure functions of the coordinates, so tracing any subset of
     pixels gives the same values as those pixels of a full-frame trace.
+
+    ``primary``: (vis, world_pos, n_geo, albedo) G-buffer planes aligned
+    with ``px``/``py`` (cfg.gbuffer_primary): bounce 0 is replayed off them
+    (:func:`primary_carry`) and the jitter is multiplied by zero (its draws
+    still advance the stream).
     """
     light_color_hdr = light.color * cfg.light_intensity
+    sigma = cfg.aa_sigma if primary is None else 0.0
     shape = tuple(px.shape)
     origins = camera_pos.expand(*shape, 3)
     total = torch.zeros(shape + (3,), dtype=torch.float32, device=px.device)
@@ -211,24 +273,29 @@ def trace_pixels(tri_data, camera_pos, light, frame_idx, px, py, cfg, rotation=N
             state, gx, gy = rng_ops.random_gaussian(state)
             dirs = cam_ops.pixel_rays(
                 px, py, cfg.width, cfg.height, cfg.fov,
-                jitter_x=cfg.aa_sigma * gx, jitter_y=cfg.aa_sigma * gy,
-                rotation=rotation,
+                jitter_x=sigma * gx, jitter_y=sigma * gy, rotation=rotation,
             )
+            carry = None
+            if primary is not None:
+                carry = primary_carry(origins, dirs, state, *primary, light.position,
+                                      light_color_hdr, cfg, tri_data=tri_data)
             # GLSL passes rngState by value into the path loop
             # (raytrace.comp.glsl:200): the next sample continues from the
             # post-jitter state, not the post-bounce one.
             summed = summed + trace_paths(
                 tri_data, light.position, light_color_hdr, origins, dirs,
-                state, cfg,
+                state, cfg, start_segment=0 if carry is None else 1, initial_carry=carry,
             )
         total = total + cam_ops.true_div(summed, float(cfg.spp))
     return cam_ops.true_div(total, float(cfg.sample_batches))
 
 
-def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation=None):
+def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation=None,
+                    primary=None):
     """Full path-trace pass over the pixel grid: :func:`trace_pixels` at
     every pixel. Returns the noisy radiance (H, W, 3)."""
     py, px = pixel_grid(cfg.height, cfg.width, camera_pos.device)
     return trace_pixels(
-        tri_data, camera_pos, light, frame_idx, px, py, cfg, rotation=rotation
+        tri_data, camera_pos, light, frame_idx, px, py, cfg, rotation=rotation,
+        primary=primary,
     )

@@ -88,3 +88,26 @@ def random_unit_sphere(state):
     r = torch.sqrt(torch.clamp_min(1.0 - u * u, 0.0))
     vec = torch.stack([r * torch.cos(theta), r * torch.sin(theta), u], dim=-1)
     return state, vec
+
+
+def sample_jitter(px, py, frame, batch, sample):
+    """The AA jitter of sample ``sample`` of batch ``batch``: the pixel's
+    seed advanced past the earlier samples' jitter draws (two each: the
+    path of a sample runs on a copy, raytrace.comp.glsl:200), then
+    :func:`random_gaussian`. Returns (state, gx, gy) as the tracer's sample
+    loop has them."""
+    state = seed_per_pixel(px, py, frame, batch)
+    for _ in range(2 * sample):
+        state = (state * 747796405 + 1) & _MASK
+    return random_gaussian(state)
+
+
+def to_int32_bits(state: torch.Tensor) -> torch.Tensor:
+    """int64 states in [0, 2**32) as int32 tensors of the same bits (the
+    CUDA kernels' uint32 words)."""
+    return (state - ((state >> 31) << 32)).to(torch.int32)
+
+
+def from_int32_bits(bits: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`to_int32_bits`."""
+    return bits.to(torch.int64) & _MASK

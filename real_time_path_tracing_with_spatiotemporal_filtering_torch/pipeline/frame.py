@@ -26,12 +26,14 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
     camera as cam_ops,
     gbuffer,
     gradient,
+    intersect,
     pathtrace,
 )
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import (
     atrous as cuda_atrous,
     geometry as cuda_geometry,
     pathtrace as cuda_pathtrace,
+    wavefront as cuda_wavefront,
 )
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline.history import (
     History,
@@ -45,7 +47,6 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene.scene impo
 # Extensions of the JAX package this package does not run yet, each with the
 # ROADMAP item that ports it: (field, value that leaves it off, item).
 _UNPORTED = (
-    ("gbuffer_primary", False, "Queue 1 item 7"),
     ("path_gradient", False, "Queue 1 item 8"),
     ("indirect_split", 0, "Queue 1 item 8"),
 )
@@ -132,8 +133,14 @@ def render_frame_impl(
                                            history.proj, cfg)
     # -- pass 3: path trace (raytrace.comp.glsl) --
     normal_img = tri_data.lut_normals[gbuf.visibility.to(torch.int64)]
+    primary = None
+    if cfg.gbuffer_primary:
+        # bounce 0 replayed off the G-buffer; the trace starts at segment 1
+        primary = (gbuf.visibility, gbuf.world_pos, normal_img,
+                   atrous.albedo_image(tri_data, gbuf.visibility))
     noisy = pathtrace.path_trace_pass(
-        tri_data, camera.position, light, frame_idx, cfg, rotation=camera.rotation
+        tri_data, camera.position, light, frame_idx, cfg, rotation=camera.rotation,
+        primary=primary,
     )
     if cfg.firefly_clamp:
         noisy = torch.clamp_max(noisy, cfg.firefly_clamp)
@@ -176,23 +183,34 @@ def render_frame_impl(
 
 def _render_frame_kernels(tri_data, camera, light, history, cfg: RenderConfig):
     """The kernel route, in the order of the JAX package's Pallas frame:
-    fused geometry kernel (with albedo planes under demodulate_albedo),
-    path-trace kernel, firefly clamp, demodulation, moments at the geometry
-    kernel's backprojection, nine a-trous launches (variance-guided or
-    not), blend kernel (ramp or not), re-modulation. On CPU tensors each
-    wrapper runs its plain version, which the tests use to check this
-    wiring."""
+    fused geometry kernel (dense or LBVH; with albedo planes under
+    demodulate_albedo or gbuffer_primary), path-trace kernel (one launch,
+    or the segment tracer on large scenes and under gbuffer_primary),
+    firefly clamp, demodulation, moments at the geometry kernel's
+    backprojection, nine a-trous launches (variance-guided or not), blend
+    kernel (ramp or not), re-modulation. On CPU tensors each wrapper runs
+    its plain version, which the tests use to check this wiring."""
     frame_idx = history.frame
     view, proj = camera_matrices(camera, cfg)
-    geo = cuda_geometry.geometry_pass(
+    large = intersect.uses_bvh(tri_data)
+    geometry_pass = cuda_geometry.geometry_pass_bvh if large else cuda_geometry.geometry_pass
+    geo = geometry_pass(
         tri_data, history.lut, camera.position, camera.rotation,
         light.position, history.light_pos, light.color, history.light_color,
         view, proj, history.view, history.proj, cfg,
-        emit_albedo=cfg.demodulate_albedo,
+        emit_albedo=cfg.demodulate_albedo or cfg.gbuffer_primary,
     )
-    noisy = cuda_pathtrace.path_trace_pass(
-        tri_data, camera.position, light, frame_idx, cfg, camera.rotation
-    )
+    if large or cfg.gbuffer_primary:
+        primary = None
+        if cfg.gbuffer_primary:
+            primary = (geo.visibility, geo.world_pos, geo.normal, geo.albedo)
+        noisy = cuda_wavefront.path_trace_wavefront(
+            tri_data, camera.position, light, frame_idx, cfg, camera.rotation, primary=primary
+        )
+    else:
+        noisy = cuda_pathtrace.path_trace_pass(
+            tri_data, camera.position, light, frame_idx, cfg, camera.rotation
+        )
     if cfg.firefly_clamp:
         noisy = torch.clamp_max(noisy, cfg.firefly_clamp)
     demod_s = None

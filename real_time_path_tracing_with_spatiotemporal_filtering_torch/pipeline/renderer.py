@@ -34,8 +34,9 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene.scene impo
 class Renderer:
     """Owns scene tables + history on ``device``; one step() per frame.
 
-    ``device`` defaults to the first CUDA device when there is one, else the
-    CPU. Checkpoints use the JAX package's .npz layout, so a state saved by
+    ``device`` defaults to the CUDA device, and a machine without one
+    raises: the CPU runs the plain versions only when asked (``"cpu"``).
+    Checkpoints use the JAX package's .npz layout, so a state saved by
     either package resumes in the other.
     """
 
@@ -47,9 +48,12 @@ class Renderer:
         light: Optional[Light] = None,
         device=None,
     ) -> None:
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the renderer runs on the card; pass device='cpu' "
+                "for the plain PyTorch versions on the CPU"
+            )
         self.cfg = cfg
         self.scene = scene
         self.tri_data = precompute_triangle_data(scene, self.device)

@@ -19,6 +19,7 @@ import torch
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.intersect import (
     TrianglePlanes,
 )
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import lbvh
 
 
 def _f32(values, device=None) -> torch.Tensor:
@@ -84,6 +85,29 @@ class Camera:
             rotation=_f32(np.eye(3), device),
         )
 
+    @classmethod
+    def looking_at(cls, position, target, up=(0.0, 1.0, 0.0), device=None) -> "Camera":
+        """Camera at ``position`` looking at ``target`` (the JAX package's
+        float32 numpy construction, so both get the same matrices)."""
+        p = np.asarray(position, np.float32)
+        f = np.asarray(target, np.float32) - p
+        f = f / np.linalg.norm(f)
+        u = np.asarray(up, np.float32)
+        r = np.cross(f, u)
+        r = r / np.linalg.norm(r)
+        u = np.cross(r, f)
+        rot = np.stack([r, u, -f], axis=1)  # columns: right, up, back
+        return cls(position=_f32(p, device), rotation=_f32(rot, device))
+
+    @classmethod
+    def orbit(cls, center, radius, azimuth, height, device=None) -> "Camera":
+        """Orbit around ``center`` at ``radius``, looking in."""
+        c = np.asarray(center, np.float32)
+        pos = c + np.array(
+            [radius * np.sin(azimuth), height, radius * np.cos(azimuth)], np.float32
+        )
+        return cls.looking_at(pos, c, device=device)
+
 
 @dataclasses.dataclass(frozen=True)
 class Light:
@@ -111,7 +135,8 @@ class TriangleData:
     reference's geometry shader scatters every frame
     (visibility.geom.glsl:32-35). ``lut_normals`` caches
     getNormalFromTriangleIndex (temporalFiltering.comp.glsl:80-91): slot 0
-    is the background sentinel normal (0, 0, 1).
+    is the background sentinel normal (0, 0, 1). ``bvh`` is the packed LBVH
+    of the triangles (scene/lbvh.py), built once with the tables.
     """
 
     planes: TrianglePlanes     # intersection constants, all (T, ...)
@@ -119,6 +144,7 @@ class TriangleData:
     albedo: torch.Tensor       # (T, 3) hardcoded material (raytrace:155-163)
     lut: torch.Tensor          # (T+1, 3, 3) visibility LUT
     lut_normals: torch.Tensor  # (T+1, 3) filter normals w/ background slot
+    bvh: lbvh.PackedBVH        # node table and triangle-test rows
 
     @property
     def num_triangles(self) -> int:
@@ -168,7 +194,11 @@ def triangle_data_from_numpy(arrays: dict, device=None) -> TriangleData:
     """TriangleData from numpy arrays keyed by the plane fields (``v0``,
     ``e1``, ``e2``, ``n``, ``d0``, ``n1``, ``d1``, ``n2``, ``d2``) and
     ``normals``, ``albedo``, ``lut``, ``lut_normals`` -- the leaves of the
-    JAX package's TriangleData, so its tables can be fed to this package."""
+    JAX package's TriangleData, so its tables can be fed to this package.
+    The LBVH is built here from the LUT's triangles."""
+    tris = np.asarray(arrays["lut"], np.float32)[1:]
+    nodes = lbvh.pack_bvh_nodes(lbvh.build_lbvh(tris) if len(tris) >= 2 else None, tris)
+    tests = lbvh.pack_triangle_tests(*(arrays[f] for f in ("n", "d0", "n1", "d1", "n2", "d2")))
     return TriangleData(
         planes=TrianglePlanes(
             *(_f32(arrays[f], device) for f in TrianglePlanes._fields)
@@ -177,6 +207,7 @@ def triangle_data_from_numpy(arrays: dict, device=None) -> TriangleData:
         albedo=_f32(arrays["albedo"], device),
         lut=_f32(arrays["lut"], device),
         lut_normals=_f32(arrays["lut_normals"], device),
+        bvh=lbvh.PackedBVH(nodes=_f32(nodes, device), tris=_f32(tests, device)),
     )
 
 

@@ -77,7 +77,6 @@ def test_invalid_config_rejected_by_both(kwargs):
 
 
 UNPORTED = [
-    ("gbuffer_primary", dict(gbuffer_primary=True)),
     ("path_gradient", dict(adaptive_alpha=True, path_gradient=True)),
     ("indirect_split", dict(indirect_split=2)),
 ]
@@ -100,6 +99,8 @@ EXTENSIONS = [
     ("demodulate_albedo", dict(variance_guided=True, demodulate_albedo=True)),
     ("accumulation_ramp", dict(accumulation_ramp=True)),
     ("firefly_clamp", dict(firefly_clamp=2.0)),
+    ("gbuffer_primary", dict(gbuffer_primary=True)),
+    ("gbuffer_primary_nee", dict(gbuffer_primary=True, nee=True)),
 ]
 
 
@@ -109,7 +110,7 @@ def test_extension_flag_matches_jax(cornell_tri_data, name, kwargs):
     the CPU that matches the JAX package's jitted XLA frame (at the golden
     tolerance; NEE at its criterion, tests/test_torch_estimators.py)."""
     cfg = RenderConfig(width=16, height=16, max_bounces=3, wavelet_iterations=1, **kwargs)
-    assert getattr(cfg, name)
+    assert getattr(cfg, name.removesuffix("_nee"))
     want, _ = jframe.render_frame(
         cornell_tri_data, JaxCamera.default(), JaxLight.default(),
         jframe.init_history(cornell_tri_data, cfg), cfg,
@@ -140,10 +141,14 @@ def test_port_does_not_import_jax():
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.atrous\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.geometry\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.pathtrace\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.wavefront\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.scene.lbvh\n"
         "from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets\n"
         "p.Renderer(p.Scene.cornell_box(), p.RenderConfig(width=8, height=8, max_bounces=2),"
         " device='cpu').step()\n"
         "presets.cornell_box_quality(device='cpu', width=8, height=8, max_bounces=2).step()\n"
+        "presets.cornell_stress(splits=4, device='cpu', width=8, height=8, max_bounces=2,"
+        " gbuffer_primary=True, nee=True).step()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('real_time_path_tracing_with_spatiotemporal_filtering_tpu')]\n"
         "assert not bad, bad\n"
@@ -161,7 +166,7 @@ def test_nvcc_flags():
     assert "-ftz=true" not in flags
     assert "--fmad=false" in flags
     assert {os.path.basename(s) for s in _build.sources()} == {
-        "geometry.cu", "pathtrace.cu", "atrous.cu"
+        "geometry.cu", "pathtrace.cu", "atrous.cu", "wavefront.cu"
     }
 
 
@@ -173,3 +178,15 @@ def test_cpu_launches_nothing():
                  device="cpu")
     frame._render_frame_kernels(r.tri_data, r.camera, r.light, r.history, r.cfg)
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+def test_renderer_without_device_needs_a_card():
+    """The entry points run on the card unless the caller asks for the
+    CPU: with no CUDA device, device=None raises instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = RenderConfig(width=8, height=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Renderer(Scene.cornell_box(), cfg, device=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Renderer(Scene.cornell_box(), cfg)

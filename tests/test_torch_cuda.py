@@ -26,6 +26,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import 
     atrous as cuda_atrous,
     geometry as cuda_geometry,
     pathtrace as cuda_pathtrace,
+    wavefront as cuda_wavefront,
 )
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import atrous
@@ -251,3 +252,127 @@ def test_preset_routes_agree(dev, name):
         assert (a - b).abs().mean().item() <= 1e-4
     assert dict(_build.LAUNCHES) == {"geometry": 3, "trace": 3, "atrous_iter_var": 27,
                                      "temporal_blend_ramp": 3}
+
+
+# --- the large-scene slice: LBVH kernels, segment tracer, shadow segment ---
+
+def _stress(splits, dev):
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import procedural
+
+    return precompute_triangle_data(Scene.from_arrays(*procedural.subdivided_cornell(splits)), dev)
+
+
+def _orbit(i, dev):
+    return Camera.orbit([0.0, 1.0, 0.0], 6.0, 0.01 * i, 1.0, device=dev)
+
+
+def test_bvh_geometry_kernel_equals_dense_kernel(dev):
+    """At 288 triangles both kernels run; every plane is bit-equal, and the
+    counting launch gives the same planes."""
+    td = _stress(3, dev)
+    args = (td, td.lut) + _geometry_args(dev)[2:]
+    _build.LAUNCHES.clear()
+    dense = cuda_geometry.geometry_pass(*args, emit_albedo=True)
+    counts = cuda_geometry.WalkCounts.zeros(CFG.height * CFG.width, td)
+    bvh = cuda_geometry.geometry_pass_bvh(*args, emit_albedo=True)
+    counted = cuda_geometry.geometry_pass_bvh(*args, emit_albedo=True, counts=counts)
+    assert _build.LAUNCHES["geometry_bvh"] == 2
+    for name in dense._fields:
+        assert torch.equal(getattr(dense, name), getattr(bvh, name)), name
+        assert torch.equal(getattr(counted, name), getattr(bvh, name)), name
+    assert counts.tests[1].min().item() >= 2  # every pixel tests the root's two boxes
+    assert counts.nodes[0].item() == 1 and counts.tris.sum().item() > 0
+    # the rows read hold every committed triangle
+    committed = bvh.visibility[bvh.visibility > 0].to(torch.int64) - 1
+    assert (counts.tris[committed] == 1).all()
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [dict(), dict(nee=True), dict(rr_start_bounce=2, max_bounces=8),
+     dict(spp=2, sample_batches=2, max_bounces=8), dict(truncate_radiance=True),
+     dict(nee=True, light_through_walls=False, max_bounces=8)],
+    ids=["parity", "nee", "rr2", "spp2_batches2", "truncate", "nee_walls"],
+)
+def test_segment_tracer_equals_trace_kernel(dev, overrides):
+    """At 288 triangles the one-launch dense kernel and the segment tracer
+    over the LBVH give the same image bit for bit."""
+    cfg = dataclasses.replace(CFG, **overrides)
+    td = _stress(3, dev)
+    cam, light = _orbit(3, dev), Light.default(dev)
+    _build.LAUNCHES.clear()
+    dense = cuda_pathtrace.path_trace_pass(td, cam.position, light, 5, cfg, cam.rotation)
+    segments = cuda_wavefront.path_trace_wavefront(td, cam.position, light, 5, cfg, cam.rotation)
+    assert _build.LAUNCHES["trace_segment"] == cfg.max_bounces * cfg.spp * cfg.sample_batches
+    assert torch.equal(dense, segments)
+
+
+def test_trace_segment_equals_plain(dev):
+    """Each segment of a NEE + RR path on 32,768 triangles: ray state after
+    the kernel equals the plain segment's on the same input."""
+    cfg = RenderConfig(width=160, height=128, max_bounces=6, nee=True, rr_start_bounce=2)
+    td = _stress(32, dev)
+    cam, light = _orbit(1, dev), Light.default(dev)
+    n = cfg.width * cfg.height
+    rays = cuda_wavefront.RayState.empty(n, dev)
+    counts = cuda_geometry.WalkCounts.zeros(n, td)
+    for seg in range(cfg.max_bounces):
+        plain = cuda_wavefront.RayState(*(t.clone() for t in rays))
+        cuda_wavefront.trace_segment(rays, seg, 0, 1, td, cam.position, cam.rotation, light, 3,
+                                     cfg, counts=counts)
+        cuda_wavefront.trace_segment_plain(plain, seg, 0, 1, td, cam.position, cam.rotation,
+                                           light, 3, cfg)
+        for a, b in zip(rays, plain):
+            assert torch.equal(a, b), seg
+    assert counts.tests[0].sum().item() > 0 and counts.tests[1].sum().item() > 0
+    assert counts.nodes.sum().item() > 0 and counts.tris.sum().item() > 0
+
+
+def test_shadow_segment_equals_plain(dev):
+    cfg = RenderConfig()
+    td = _stress(32, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    n = 100_000
+    o = torch.rand((n, 3), generator=g, device=dev) * 1.8 - torch.tensor([0.9, -0.05, 0.9], device=dev)
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g, device=dev), dim=-1)
+    cap = torch.rand(n, generator=g, device=dev) * 2.0
+    mask = torch.rand(n, generator=g, device=dev) < 0.7
+    _build.LAUNCHES.clear()
+    got = cuda_wavefront.shadow_segment(o, d, cap, mask, td, cfg)
+    assert _build.LAUNCHES["shadow_segment"] == 1
+    want = cuda_wavefront.shadow_segment_plain(o, d, cap, mask, td, cfg)
+    assert torch.equal(got, want) and want.any() and (mask & ~want).any()
+
+
+@pytest.mark.parametrize(
+    "overrides, per_frame",
+    [(dict(), {"geometry_bvh": 1, "trace_segment": 8, "atrous_iter": 9, "temporal_blend": 1}),
+     (dict(gbuffer_primary=True, nee=True),
+      {"geometry_bvh": 1, "shadow_segment": 1, "trace_segment": 7, "atrous_iter": 9,
+       "temporal_blend": 1})],
+    ids=["A", "C"],
+)
+def test_large_scene_routes_agree(dev, overrides, per_frame):
+    """Paths A and C of the slice (32,768 triangles, 8 bounces, RR from 2,
+    adaptive alpha, orbit camera) at 160x128: both routes agree frame by
+    frame, and the kernel route launches the slice's kernels."""
+    small = dict(width=160, height=128, max_bounces=8, rr_start_bounce=2, adaptive_alpha=True,
+                 **overrides)
+    r_k = presets.cornell_stress(splits=32, device=dev, **small)
+    r_p = presets.cornell_stress(splits=32, device=dev, backend="xla", **small)
+    _build.LAUNCHES.clear()
+    for i in range(3):
+        r_k.camera = r_p.camera = _orbit(i, dev)
+        a, b = r_k.step(), r_p.step()
+        assert torch.isfinite(a).all()
+        assert torch.isclose(a, b, rtol=0, atol=1e-3).double().mean().item() >= 0.99
+        assert (a - b).abs().mean().item() <= 1e-4
+    assert dict(_build.LAUNCHES) == {k: 3 * v for k, v in per_frame.items()}
+
+
+def test_cornell_stress_default_runs_on_the_kernel_route(dev):
+    """512 triangles: over the dense kernels' tables, so the LBVH kernels."""
+    r = presets.cornell_stress(device=dev, width=160, height=128, max_bounces=4)
+    _build.LAUNCHES.clear()
+    assert torch.isfinite(r.step()).all()
+    assert _build.LAUNCHES["geometry_bvh"] == 1 and _build.LAUNCHES["trace_segment"] == 4
