@@ -18,7 +18,13 @@ filtering_torch/csrc`` with nvcc, then:
   tracer on B at segments 0, 1 and 31), at 480x270 for the tracer's further
   modes, and against the dense kernels (bit for bit, and timed) at
   1920x1080 on 32, 128 and 288 triangles, where both run;
-- drives six main paths through ``Renderer.step()`` on both routes
+- checks the path-gradient / multi-res slice's kernel modes bit for bit
+  against their plain versions at 1920x1080: the segment tracer's
+  explicit-pixel mode at the path gradient's 640x360 stratum pixels on
+  32,768 triangles and on path D's phased coarse tail with the G-buffer
+  seed, and the geometry kernels' visibility-only mode (the drop-in for
+  ops/gbuffer.visibility_pass) on the Cornell box and on 32,768 triangles;
+- drives eight main paths through ``Renderer.step()`` on both routes
   (kernels, and ``backend="xla"``, the plain version), each with the launch
   counts read just after it: the default config for 16 frames at 1000x800,
   the ``cornell_box_quality`` and ``cornell_box_interactive`` presets for 8
@@ -26,7 +32,11 @@ filtering_torch/csrc`` with nvcc, then:
   under the orbit camera: path A (32,768 triangles, 8 bounces, Russian
   roulette from 2, adaptive alpha; 4 frames at 1920x1080), path B (247,808
   triangles, the default config; 2 frames at 480x270) and path C (A with the
-  G-buffer seed and NEE; 4 frames at 1920x1080);
+  G-buffer seed and NEE; 4 frames at 1920x1080); path D (A with multi-res
+  indirect, the G-buffer seed, grid jitter, variance-guided SVGF and the
+  ramp in "normal" mode; 4 frames at 1920x1080) and path E (the Cornell
+  box with the path gradient, variance-guided SVGF and the ramp under a
+  drifting light; 8 frames at 512x512);
 - times both routes with CUDA events.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
@@ -68,6 +78,28 @@ LARGE = {
     "B": (88, {}, 2, PLAIN_SIZE),
     "C": (32, dict(max_bounces=8, rr_start_bounce=2, adaptive_alpha=True, gbuffer_primary=True,
                    nee=True), 4, BENCH_SIZE),
+}
+# The path-gradient / multi-res paths: (splits of presets.cornell_stress,
+# or None for the Cornell box; config overrides, frames, size). D is row
+# 4c'' of the JAX package's benchmarks/suite.py (:212-227, on rows 4c and
+# 4c' at :177-210) under the orbit camera, E is row 2e (:124-138) with the
+# light moved by 0.05 before each frame. D's plain route runs at 1920x1080
+# too (its size must stay divisible by the stride).
+RECOMMENDED = dict(max_bounces=8, rr_start_bounce=2, adaptive_alpha=True, indirect_split=1,
+                   indirect_stride=4, gbuffer_primary=True, indirect_jitter=True,
+                   variance_guided=True, accumulation_ramp=True, ramp_reset_mode="normal")
+PATHGRAD = dict(variance_guided=True, accumulation_ramp=True, path_gradient=True)
+GRADIENT_PATHS = {
+    "D": (32, RECOMMENDED, 4, BENCH_SIZE),
+    "E": (None, PATHGRAD, 8, (512, 512)),
+}
+GRADIENT_PER_FRAME = {
+    # the truncated full-res trace is bounce 0 off the G-buffer (no launch);
+    # the 480x270 coarse tail runs segments 1-7
+    "D": {"geometry_bvh": 1, "trace_segment": 7, "atrous_iter_var": 9, "temporal_blend_ramp": 1},
+    # the 171x171 stratum re-trace runs 32 segments
+    "E": {"geometry": 1, "trace": 1, "trace_segment": 32, "atrous_iter_var": 9,
+          "temporal_blend_ramp": 1},
 }
 LARGE_PER_FRAME = {
     "A": {"geometry_bvh": 1, "trace_segment": 8, "atrous_iter": 9, "temporal_blend": 1},
@@ -858,22 +890,249 @@ def large_kernel_phase(pt, dev, records) -> None:
     print(f"large-scene kernel phase: {time.time() - t_phase:.1f} s", flush=True)
 
 
-def large_sequence_phase(pt, dev, path: str) -> dict:
-    """Frames of a large-scene path through Renderer.step() on both routes
-    under the suite's orbit camera; returns the kernel launch counts."""
+def pixel_segments(wf, td, cfg, cam, light, frame_idx, pixels, rays, start: int, counts=None,
+                   live=None) -> None:
+    """The explicit-pixel segments ``start``..max_bounces - 1 of a 1-sample
+    trace of ``rays`` at ``pixels`` on the card. With ``live`` (a list),
+    appends the number of live rays before each launch (a host read)."""
     import torch
 
+    n = rays.alive.shape[0]
+    for seg in range(start, cfg.max_bounces):
+        if live is not None:
+            live.append(n if seg == 0 else int(rays.alive.sum(dtype=torch.int64).item()))
+        wf.trace_segment(rays, seg, 0, 0, td, cam.position, cam.rotation, light, frame_idx, cfg,
+                         counts=counts, pixels=pixels)
+
+
+def explicit_pixel_mode(wf, td, cfg, cam, light, frame_idx, pixels, primary, label: str,
+                        path: str) -> dict:
+    """The segment tracer's explicit-pixel mode on the rays at ``pixels``
+    (int32 px, py), seeded from the G-buffer planes ``primary`` at those
+    pixels (segments from 1) or not (segments from 0): each segment against
+    the plain version on the same input ray state, bit for bit; then ms per
+    launch (CUDA events around the segments only) and the bound per launch
+    from the kernel's counts: the pixel lists (8 B a ray) and 56 B of ray
+    state written at segment 0, then per launch 4 B a ray and 108 B a live
+    ray, 72 B of parameters, and once per trace the rows the walks read with
+    60 B of each triangle tested. Returns the mode's record; ``path`` names
+    the main path whose launches of the kernel are all of this mode."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.geometry import (
+        WalkCounts,
+    )
+
+    n = pixels[0].numel()
+    dev = pixels[0].device
+    start = 0 if primary is None else 1
+    seeded = wf.RayState.empty(n, dev)
+    if primary is not None:
+        wf._seed_from_gbuffer(seeded, primary, 0, 0, td, cam.position, cam.rotation, light,
+                              frame_idx, cfg, None, pixels)
+
+    def fresh():
+        return wf.RayState(*(t.clone() for t in seeded))
+
+    rays, err, plain_s = fresh(), 0.0, 0.0
+    for seg in range(start, cfg.max_bounces):
+        plain = wf.RayState(*(t.clone() for t in rays))
+        wf.trace_segment(rays, seg, 0, 0, td, cam.position, cam.rotation, light, frame_idx, cfg,
+                         pixels=pixels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wf.trace_segment_plain(plain, seg, 0, 0, td, cam.position, cam.rotation, light,
+                               frame_idx, cfg, pixels)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        err = max(err, max_abs(rays.f, plain.f))
+        same = all(torch.equal(a, b) for a, b in zip(rays, plain))
+        if not same:
+            check(False, f"trace_segment explicit pixels {label} segment {seg}: ray state "
+                         "bit-equal to the plain version")
+    launches = cfg.max_bounces - start
+    print(f"trace_segment explicit pixels {label}: {n} rays, {launches} segments bit-equal to "
+          f"the plain version, max_abs {err:.3e}", flush=True)
+    check(True, f"trace_segment explicit pixels {label}: every segment bit-equal")
+
+    counts, live = WalkCounts.zeros(n, td), []
+    pixel_segments(wf, td, cfg, cam, light, frame_idx, pixels, fresh(), start, counts, live)
+    later = live[1:] if start == 0 else live
+    state_bytes = (64 * n if start == 0 else 0) + sum(108 * k + 4 * n for k in later)
+    fields = walk_bound(counts, state_bytes + 72 * launches, per_tri=60)
+    fields["bound_ms"] /= launches
+    events = []
+    for _ in range(4):
+        r = fresh()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        pixel_segments(wf, td, cfg, cam, light, frame_idx, pixels, r, start)
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    ms = sum(a.elapsed_time(b) for a, b in events[1:]) / (len(events) - 1) / launches
+    return dict(mode=f"{label}, per launch", max_abs_err=err, ms=ms,
+                plain_ms=1e3 * plain_s / launches, rays=n, live_rays=live, on_path=path, **fields)
+
+
+def visibility_mode(pt, geo_mod, td, cfg, cam, dev, label: str) -> dict:
+    """The geometry kernels' visibility-only mode (ops/cuda/geometry.
+    visibility_pass) against ops/gbuffer.visibility_pass and against the
+    full mode's planes, bit for bit, with its launch count; ms and the
+    bound: 5 planes written (20 B a pixel), the 56 parameters, and on the
+    dense kernel its 168-byte rows and a test per triangle and pixel, on the
+    LBVH the rows the walks read and the hit position (36 B) of each
+    distinct committed triangle. Returns the mode's record."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import gbuffer, intersect
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import LAUNCHES
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline import frame
+
+    view, proj = frame.camera_matrices(cam, cfg)
+    light = pt.Light.default(dev)
+    bvh = intersect.uses_bvh(td)
+    full_pass = geo_mod.geometry_pass_bvh if bvh else geo_mod.geometry_pass
+    args = (td, cam.position, view, proj, cfg, cam.rotation)
+    LAUNCHES.clear()
+    k = geo_mod.visibility_pass(*args)
+    launches = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    p = gbuffer.visibility_pass(*args[:5], rotation=cam.rotation)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    full = full_pass(td, td.lut, cam.position, cam.rotation, light.position, light.position,
+                     light.color, light.color, view, proj, view, proj, cfg)
+    planes = (("visibility", full.visibility), ("world_pos", full.world_pos),
+              ("depth", full.depth))
+    err = max(max_abs(getattr(k, name), getattr(p, name)) for name, _ in planes)
+    same_plain = all(torch.equal(getattr(k, name), getattr(p, name)) for name, _ in planes)
+    same_full = all(torch.equal(getattr(k, name), t) for name, t in planes)
+    name = "geometry_bvh[visibility]" if bvh else "geometry[visibility]"
+    print(f"visibility-only mode {label} {cfg.width}x{cfg.height}: bit-equal to "
+          f"ops/gbuffer.visibility_pass {same_plain}, to the full mode's planes {same_full}, "
+          f"max_abs {err:.3e}; launches {launches}", flush=True)
+    check(same_plain and same_full and launches == {name: 1},
+          f"visibility-only mode {label}: planes bit-equal to the plain version and the full "
+          f"mode, one {name} launch")
+    n = cfg.width * cfg.height
+    if bvh:
+        counts = geo_mod.WalkCounts.zeros(n, td)
+        geo_mod.visibility_pass(*args, counts=counts)
+        committed = torch.unique(k.visibility[k.visibility > 0]).numel()
+        fields = dict(walk_bound(counts, 20 * n + 224 + 36 * committed), committed_tris=committed)
+    else:
+        t = td.num_triangles
+        fields = bound(20 * n + 224 + 168 * t, TRI_TEST_OPS * t * n)
+    return dict(mode=f"visibility-only ({label}), {cfg.width}x{cfg.height}", max_abs_err=err,
+                launches_by_path={"visibility_pass": launches.get(name, 0)},
+                ms=time_ms(lambda: geo_mod.visibility_pass(*args), 20), plain_ms=plain_ms,
+                **fields)
+
+
+def gradient_kernel_phase(pt, dev, records) -> None:
+    """The kernel modes of the path-gradient / multi-res slice at 1920x1080:
+    the explicit-pixel segments at the path gradient's stratum pixels under
+    path A's levers and on path D's phased coarse tail with the G-buffer
+    seed (32,768 triangles), and the visibility-only mode on the Cornell box
+    and on 32,768 triangles. Adds each as a mode of its kernel's record."""
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
+        multires,
+        pathgrad,
+    )
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import (
+        geometry as geo_mod,
+        wavefront as wf,
+    )
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import procedural
+
+    import torch
+
+    t_phase = time.time()
+    by_name = {r["name"]: r for r in records}
+    w, h = BENCH_SIZE
+    td = pt.precompute_triangle_data(pt.Scene.from_arrays(*procedural.subdivided_cornell(32)),
+                                     dev)
+    cam, light = orbit(pt, 3, dev), pt.Light.default(dev)
+    seg_rec = by_name["trace_segment"]
+
+    # the re-trace of frame 5 at frame 6's stratum pixels, path A's levers
+    path_a = pt.RenderConfig(width=w, height=h, **LARGE["A"][1])
+    gy, gx = pathgrad.stratum_pixels(h, w, 6, path_a.gradient_stratum, dev)
+    pixels = tuple(t.reshape(-1).to(torch.int32).contiguous() for t in (gx, gy))
+    mode = explicit_pixel_mode(wf, td, path_a, cam, light, 5, pixels, None,
+                               f"path gradient stratum pixels {gx.shape[1]}x{gx.shape[0]} of "
+                               f"{w}x{h}, 32768 tris, path A levers", "E")
+    seg_rec["modes"].append(mode)
+
+    # path D's coarse tail at a phase other than (0, 0), seeded from its G-buffer
+    path_d = pt.RenderConfig(width=w, height=h, **RECOMMENDED)
+    frame_idx = 5
+    phase = multires.grid_phase(frame_idx, path_d.indirect_stride)
+    check(phase != (0, 0), f"path D's grid phase at frame {frame_idx} is {phase}, not (0, 0)")
+    geo = geo_mod.geometry_pass_bvh(*stress_geo_args(pt, td, path_d, dev), emit_albedo=True)
+    primary = (geo.visibility, geo.world_pos, geo.normal, geo.albedo)
+    _, tail_cfg = multires.split_cfgs(path_d)
+    s = path_d.indirect_stride
+    prim_c = tuple(multires._subsample(p, s, phase) for p in primary)
+    py_c, px_c = multires.coarse_pixels(path_d, phase, dev)
+    pixels = tuple(t.reshape(-1).to(torch.int32).contiguous() for t in (px_c, py_c))
+    mode = explicit_pixel_mode(wf, td, tail_cfg, cam, light, frame_idx, pixels, prim_c,
+                               f"path D coarse tail {w // s}x{h // s} at phase {phase}, "
+                               "G-buffer seed, 32768 tris", "D")
+    seg_rec["modes"].append(mode)
+    seg_rec["max_abs_err"] = max(seg_rec["max_abs_err"], *(m["max_abs_err"]
+                                                          for m in seg_rec["modes"][-2:]))
+
+    cfg = pt.RenderConfig(width=w, height=h)
+    cornell = pt.precompute_triangle_data(pt.Scene.cornell_box(), dev)
+    by_name["geometry"]["modes"].append(
+        visibility_mode(pt, geo_mod, cornell, cfg, pt.Camera.default(dev), dev,
+                        "Cornell box, dense kernel"))
+    by_name["geometry_bvh"]["modes"].append(
+        visibility_mode(pt, geo_mod, td, cfg, cam, dev, "32768 tris, LBVH kernel"))
+    print(f"path-gradient / multi-res kernel phase: {time.time() - t_phase:.1f} s", flush=True)
+
+
+def path_renderer(pt, dev, path: str, backend: str = "auto", size=None):
+    """The Renderer of a large-scene or gradient path (LARGE, GRADIENT_PATHS)
+    on one route, at its size or ``size``."""
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets
+
+    splits, over, _, (w, h) = {**LARGE, **GRADIENT_PATHS}[path]
+    if size is not None:
+        w, h = size
+    if splits is None:
+        cfg = pt.RenderConfig(width=w, height=h, backend=backend, **over)
+        return pt.Renderer(pt.Scene.cornell_box(), cfg, device=dev)
+    return presets.cornell_stress(splits=splits, device=dev, width=w, height=h, backend=backend,
+                                  **over)
+
+
+def advance(pt, r, path: str, f: int, dev) -> None:
+    """Frame f's motion: the drifting light of path E (the suite's row 2e),
+    the suite's orbit camera elsewhere."""
+    if path == "E":
+        r.move_light(dx=0.05)
+    else:
+        r.camera = orbit(pt, f, dev)
+
+
+def large_sequence_phase(pt, dev, path: str) -> dict:
+    """Frames of a large-scene or gradient path through Renderer.step() on
+    both routes; returns the kernel launch counts."""
+    import torch
+
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import LAUNCHES
 
-    splits, over, frames, (w, h) = LARGE[path]
+    _, _, frames, (w, h) = {**LARGE, **GRADIENT_PATHS}[path]
     t_phase = time.time()
-    r_k = presets.cornell_stress(splits=splits, device=dev, width=w, height=h, **over)
-    r_p = presets.cornell_stress(splits=splits, device=dev, width=w, height=h, backend="xla",
-                                 **over)
+    r_k = path_renderer(pt, dev, path)
+    r_p = path_renderer(pt, dev, path, backend="xla")
     LAUNCHES.clear()
     for f in range(frames):
-        r_k.camera = r_p.camera = orbit(pt, f, dev)
+        for r in (r_k, r_p):
+            advance(pt, r, path, f, dev)
         a = r_k.step()
         b = r_p.step()
         torch.cuda.synchronize()
@@ -885,7 +1144,8 @@ def large_sequence_phase(pt, dev, path: str) -> dict:
         check(finite and tuple(a.shape) == (h, w, 3), f"path {path} frame {f} finite, shape (H, W, 3)")
         check(bad <= 0.01 and mean <= 1e-4, f"path {path} frame {f} kernel route within 1e-3 on >= 99%")
     counts = dict(LAUNCHES)
-    expected = {k: frames * v for k, v in LARGE_PER_FRAME[path].items()}
+    per_frame = {**LARGE_PER_FRAME, **GRADIENT_PER_FRAME}[path]
+    expected = {k: frames * v for k, v in per_frame.items()}
     print(f"path {path} ({r_k.tri_data.num_triangles} tris, {w}x{h}) launch counts over "
           f"{frames} frames: {counts}; {time.time() - t_phase:.1f} s")
     check(counts == expected, f"path {path} launch counts {expected}")
@@ -894,8 +1154,9 @@ def large_sequence_phase(pt, dev, path: str) -> dict:
 
 def large_timing_phase(pt, dev, card: str) -> None:
     """presets.cornell_stress() with its defaults and at BVH_MIN_TRIANGLES
-    (splits=2) on the kernel route, then ms/frame of paths A, B and C at
-    1920x1080 on the kernel route, and of path A's plain route once."""
+    (splits=2) on the kernel route, then ms/frame of paths A, B, C and D at
+    1920x1080 and E at 512x512 on the kernel route, and of the plain routes
+    of paths A and D once."""
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets
 
     import torch
@@ -918,15 +1179,17 @@ def large_timing_phase(pt, dev, card: str) -> None:
               and counts.get("trace_segment") == r.cfg.max_bounces,
               f"cornell_stress({over}) renders on the kernel route through the LBVH kernels")
     for path, backend, reps, warmup in (("A", "auto", 10, 2), ("B", "auto", 5, 2),
-                                        ("C", "auto", 10, 2), ("A", "xla", 1, 0)):
-        splits, over, _, _ = LARGE[path]
-        r = presets.cornell_stress(splits=splits, device=dev, width=w, height=h, backend=backend,
-                                   **over)
-        r.camera = orbit(pt, 0, dev)
+                                        ("C", "auto", 10, 2), ("D", "auto", 10, 2),
+                                        ("E", "auto", 20, 3), ("A", "xla", 1, 0),
+                                        ("D", "xla", 1, 1)):
+        size = (512, 512) if path == "E" else (w, h)
+        r = path_renderer(pt, dev, path, backend, size)
+        if path != "E":
+            r.camera = orbit(pt, 0, dev)
         ms = time_ms(r.step, reps, warmup=warmup)
         route = "kernels" if backend == "auto" else "plain"
-        print(f"ms/frame path {path} ({r.tri_data.num_triangles} tris) {w}x{h} {route}: "
-              f"{ms:.3f} ({card})")
+        print(f"ms/frame path {path} ({r.tri_data.num_triangles} tris) {size[0]}x{size[1]} "
+              f"{route}: {ms:.3f} ({card})")
     print(f"large-scene timing phase: {time.time() - t_phase:.1f} s", flush=True)
 
 
@@ -967,10 +1230,11 @@ def main() -> int:
         svgf_kernel_phase(pt, (geo_mod, pt_mod, at_mod), dev, records)
         golden_phase(pt, dev)
         large_kernel_phase(pt, dev, records)
+        gradient_kernel_phase(pt, dev, records)
         paths = {"default": sequence_phase(pt, dev)}
         for name in PRESETS:
             paths[name] = preset_sequence_phase(pt, dev, name)
-        for path in LARGE:
+        for path in (*LARGE, *GRADIENT_PATHS):
             paths[path] = large_sequence_phase(pt, dev, path)
         timing_phase(pt, dev, card)
         large_timing_phase(pt, dev, card)
@@ -980,6 +1244,10 @@ def main() -> int:
     for r in records:
         r["launches_by_path"] = {path: counts.get(r["name"], 0) for path, counts in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
+        for mode in r["modes"]:
+            if "on_path" in mode:  # a mode that is all of the kernel's launches on that path
+                path = mode.pop("on_path")
+                mode["launches_by_path"] = {path: paths[path].get(r["name"], 0)}
     if not all(r["launches"] > 0 for r in records):
         print("chip_smoke: failed: a kernel was not launched on any main path", file=sys.stderr)
         return 1

@@ -2,7 +2,7 @@
 """Where the time of a frame goes, on one CUDA card.
 
     python3 frame_profile.py [--configs default,default_1080p,quality,interactive,
-                                        stress32,stress88]
+                                        stress32,stress88,recommended32,pathgrad512]
                              [--out frame_profiles]
 
 For each configuration, renders 5 warm-up frames through
@@ -13,6 +13,10 @@ Prints one line per configuration with ms/frame (host clock, unprofiled and
 profiled), the device's busy time per frame (the union of its kernel
 intervals), its idle share, and each kernel's device ms and launches per
 frame. The static camera and light leave every frame's work the same.
+The plain PyTorch parts of the path gradient and the multi-res split
+(``ops/pathgrad.path_gradient_pass`` with its ``box3_filter`` passes, and
+``ops/multires.combine_planes``) run inside ``torch.profiler`` ranges during
+the profiled frames, and the kernels they launch are reported per range.
 Exits non-zero if a configuration fails to run.
 
 Configurations: ``default`` is ``RenderConfig()`` (1000x800), and
@@ -22,12 +26,18 @@ the ``cornell_box_quality`` and ``cornell_box_interactive`` presets
 ``presets.cornell_stress`` at 1920x1080 seen by the orbit camera at azimuth
 0: 32,768 triangles with 8 bounces, Russian roulette from bounce 2 and
 adaptive alpha, and 247,808 triangles in the default parity config.
+``recommended32`` is the JAX suite's row 4c'' (``stress32`` with multi-res
+indirect at split 1 and stride 4, the G-buffer seed, grid jitter,
+variance-guided SVGF and the ramp in "normal" mode) and ``pathgrad512`` its
+row 2e (the Cornell box at 512x512 with variance-guided SVGF, the ramp and
+the path gradient).
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -37,16 +47,27 @@ import time
 FRAMES = 20
 WARMUP = 5
 # large scenes: (splits, config overrides)
+INTERACTIVE = dict(max_bounces=8, rr_start_bounce=2, adaptive_alpha=True)
 STRESS = {
-    "stress32": (32, dict(max_bounces=8, rr_start_bounce=2, adaptive_alpha=True)),
+    "stress32": (32, INTERACTIVE),
     "stress88": (88, {}),
+    "recommended32": (32, dict(INTERACTIVE, indirect_split=1, indirect_stride=4,
+                               gbuffer_primary=True, indirect_jitter=True, variance_guided=True,
+                               accumulation_ramp=True, ramp_reset_mode="normal")),
 }
+PATHGRAD512 = dict(width=512, height=512, variance_guided=True, accumulation_ramp=True,
+                   path_gradient=True)
+# plain PyTorch functions whose kernels are reported apart: (module, name)
+RANGES = (("pathgrad", "path_gradient_pass"), ("pathgrad", "box3_filter"),
+          ("multires", "combine_planes"))
 
 
 def _renderer(pt, name: str):
     if name in ("default", "default_1080p"):
         size = {} if name == "default" else dict(width=1920, height=1080)
         return pt.Renderer(pt.Scene.cornell_box(), pt.RenderConfig(**size))
+    if name == "pathgrad512":
+        return pt.Renderer(pt.Scene.cornell_box(), pt.RenderConfig(**PATHGRAD512))
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets
 
     if name in STRESS:
@@ -57,10 +78,55 @@ def _renderer(pt, name: str):
     return getattr(presets, f"cornell_box_{name}")()
 
 
-def _kernels(trace_path: str):
+def _events(trace_path: str):
     with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
+        return json.load(f)["traceEvents"]
+
+
+def _kernels(events):
     return [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+
+
+def _kernel_name(e) -> str:
+    key = e["name"].replace("(anonymous namespace)::", "").replace("void ", "")
+    return key.split("(")[0].split("<")[0].split("::")[-1]
+
+
+def _range_kernels(events, label: str):
+    """The kernels launched from the host inside the profiler ranges named
+    ``label``: the launch call (matched to its kernel by correlation id)
+    starts inside the range."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == label]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})
+                and any(a <= e["ts"] <= b for a, b in spans)}
+    return [e for e in _kernels(events) if e.get("args", {}).get("correlation") in launched]
+
+
+@contextlib.contextmanager
+def _annotated_ranges():
+    """Wrap the RANGES functions in profiler ranges of their names."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch import ops
+
+    saved = []
+    for mod_name, fn_name in RANGES:
+        mod = getattr(ops, mod_name)
+        fn = getattr(mod, fn_name)
+        saved.append((mod, fn_name, fn))
+
+        def wrapper(*args, _fn=fn, _label=fn_name, **kwargs):
+            with torch.profiler.record_function(_label):
+                return _fn(*args, **kwargs)
+
+        setattr(mod, fn_name, wrapper)
+    try:
+        yield
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
 
 
 def _busy_us(kernels) -> float:
@@ -88,7 +154,7 @@ def profile(pt, name: str, out: str) -> dict:
     wall_ms = 1e3 * (time.perf_counter() - t0) / FRAMES
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with _annotated_ranges(), torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(FRAMES):
             r.step()
@@ -96,21 +162,32 @@ def profile(pt, name: str, out: str) -> dict:
         prof_ms = 1e3 * (time.perf_counter() - t0) / FRAMES
     path = os.path.join(out, f"frame_profile_{name}.json")
     prof.export_chrome_trace(path)
-    kernels = _kernels(path)
-    per_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        key = e["name"].replace("(anonymous namespace)::", "").replace("void ", "")
-        key = key.split("(")[0].split("<")[0].split("::")[-1]
-        per_name[key][0] += e["dur"] / 1e3 / FRAMES
-        per_name[key][1] += 1
+    events = _events(path)
+    kernels = _kernels(events)
     busy_ms = _busy_us(kernels) / 1e3 / FRAMES
+    ranges = {}
+    for _, label in RANGES:
+        inside = _range_kernels(events, label)
+        if inside:
+            ranges[label] = dict(_per_kernel(inside),
+                                 ms=sum(e["dur"] for e in inside) / 1e3 / FRAMES,
+                                 launches_per_frame=len(inside) / FRAMES)
     return dict(
         config=name, width=r.cfg.width, height=r.cfg.height, frames=FRAMES,
         ms_per_frame=wall_ms, ms_per_frame_profiled=prof_ms, device_busy_ms=busy_ms,
-        idle_share=1.0 - busy_ms / prof_ms,
-        kernels={k: dict(ms=v[0], launches_per_frame=v[1] / FRAMES)
-                 for k, v in sorted(per_name.items(), key=lambda kv: -kv[1][0])},
+        idle_share=1.0 - busy_ms / prof_ms, kernels=_per_kernel(kernels)["kernels"],
+        plain_ranges=ranges,
     )
+
+
+def _per_kernel(kernels) -> dict:
+    """Device ms and launches per frame of each kernel name, largest first."""
+    per_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        per_name[_kernel_name(e)][0] += e["dur"] / 1e3 / FRAMES
+        per_name[_kernel_name(e)][1] += 1
+    return dict(kernels={k: dict(ms=v[0], launches_per_frame=v[1] / FRAMES)
+                         for k, v in sorted(per_name.items(), key=lambda kv: -kv[1][0])})
 
 
 def main() -> int:
@@ -118,7 +195,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--configs",
-                        default="default,default_1080p,quality,interactive,stress32,stress88")
+                        default="default,default_1080p,quality,interactive,stress32,stress88,"
+                                "recommended32,pathgrad512")
     parser.add_argument("--out", default="frame_profiles")
     args = parser.parse_args()
     if not torch.cuda.is_available():

@@ -5,9 +5,8 @@ constant scattered across common.h, main.cpp and the GLSL shaders (see
 reference common.h:14-24, main.cpp:52-72, raytrace.comp.glsl:204,280-282,306,
 temporalFiltering.comp.glsl:203-205,243). ``RenderConfig`` captures that exact
 list as one frozen (hashable) dataclass. Fields, defaults and validation are
-the JAX package's, so one config describes the same frame in both packages;
-the frame function rejects the extensions this package does not run yet
-(``pipeline.frame.check_supported``).
+the JAX package's, so one config describes the same frame in both packages,
+and this package runs every one of them.
 """
 
 from __future__ import annotations

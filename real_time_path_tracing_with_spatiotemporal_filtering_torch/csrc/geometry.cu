@@ -35,6 +35,15 @@
 // The arithmetic follows the plain PyTorch version operation for operation
 // (see common.cuh): barycentrics are recombined as v0 + u e1 + v e2, not
 // o + t d, and the Phong exponent 128 is seven squarings in both.
+//
+// The visibility-only mode (kVisOnly, a template flag of both kernels)
+// replaces the TPU kernel _gbuffer_kernel
+// (real_time_path_tracing_with_spatiotemporal_filtering_tpu/ops/pallas/pathtrace.py:1946),
+// the drop-in for ops/gbuffer.visibility_pass: the same walk and the same
+// first lines of the epilogue, writing only vis, depth and world position
+// (5 planes, 20 bytes a pixel) and skipping the gradient, the
+// backprojection, the normal and the albedo. Its planes are those of the
+// full mode bit for bit.
 
 #include "bvh.cuh"
 
@@ -103,24 +112,34 @@ struct TriVerts {
 };
 
 // Everything after the nearest hit, for one pixel (shared by both kernels):
-// depth, filter normal, temporal gradient, backprojection, albedo.
+// depth, then (unless kVisOnly) filter normal, temporal gradient,
+// backprojection, albedo.
 // prm: cam[0:3] rot[3:12] M[12:28] Mprev[28:44] light[44:47]
 //      light_prev[47:50] color[50:53] color_prev[53:56]
+template <bool kVisOnly>
 __device__ __forceinline__ void geometry_epilogue(int x, int y, int width, int height,
                                                   const float* prm, const Hit& h, V3 world,
                                                   const TriVerts& tv, const GeoOut& o) {
   int pix = y * width + x;
-  V3 cam = load3(prm);
   const float* M = prm + 12;
-  const float* Mp = prm + 28;
-  float vis = 0.0f, depth = 1.0f, lam = 0.0f;
-  V3 normal = {0.0f, 0.0f, 1.0f};  // background sentinel, lut_normals[0]
-  int py = y, px = x;  // background keeps its own pixel
+  float vis = 0.0f, depth = 1.0f;
   if (h.hit) {
     vis = (float)(h.prim + 1);
     float cz = M[8] * world.x + M[9] * world.y + M[10] * world.z + M[11];
     float cw = M[12] * world.x + M[13] * world.y + M[14] * world.z + M[15];
     depth = cz / cw;
+  }
+  o.vis[pix] = vis;
+  o.depth[pix] = depth;
+  store3(o.world + 3 * pix, world);
+  if (kVisOnly) return;
+
+  V3 cam = load3(prm);
+  const float* Mp = prm + 28;
+  float lam = 0.0f;
+  V3 normal = {0.0f, 0.0f, 1.0f};  // background sentinel, lut_normals[0]
+  int py = y, px = x;  // background keeps its own pixel
+  if (h.hit) {
     normal = tv.normal;
 
     // temporal gradient (ops/gradient.py)
@@ -141,13 +160,10 @@ __device__ __forceinline__ void geometry_epilogue(int x, int y, int width, int h
     px = to_pixel((qx / qw * 0.5f + 0.5f) * (float)width, width);
     py = to_pixel((qy / qw * 0.5f + 0.5f) * (float)height, height);
   }
-  o.vis[pix] = vis;
-  o.depth[pix] = depth;
   store3(o.normal + 3 * pix, normal);
   o.lam[pix] = lam;
   o.py[pix] = py;
   o.px[pix] = px;
-  store3(o.world + 3 * pix, world);
   if (o.out_albedo != nullptr) {
     store3(o.out_albedo + 3 * pix, h.hit ? load3(o.albedo + 3 * h.prim) : v3(1.0f, 1.0f, 1.0f));
   }
@@ -160,6 +176,7 @@ __device__ __forceinline__ void stage_params(float* prm, const float* __restrict
 }
 
 // The dense kernel: every triangle of a shared-memory table, in index order.
+template <bool kVisOnly>
 __global__ void geometry_kernel(const float* __restrict__ table, int num_tris,
                                 const float* __restrict__ params, int width, int height,
                                 float slope, float t_max, float eps, GeoOut o) {
@@ -176,12 +193,14 @@ __global__ void geometry_kernel(const float* __restrict__ table, int num_tris,
   V3 world = {0.0f, 0.0f, 0.0f};
   TriVerts tv = {};
   if (h.hit) {
-    const float* row = smem + h.prim * kStride;
     world = hit_position(smem, kStride, h);
-    tv = {load3(row + 21), load3(row + 24), load3(row + 27), load3(row + 30),
-          load3(row + 33), load3(row + 36), load3(row + 39)};
+    if (!kVisOnly) {
+      const float* row = smem + h.prim * kStride;
+      tv = {load3(row + 21), load3(row + 24), load3(row + 27), load3(row + 30),
+            load3(row + 33), load3(row + 36), load3(row + 39)};
+    }
   }
-  geometry_epilogue(x, y, width, height, prm, h, world, tv, o);
+  geometry_epilogue<kVisOnly>(x, y, width, height, prm, h, world, tv, o);
 }
 
 // The LBVH kernel (large scenes): the walk commits (t, u, v, prim) only;
@@ -189,7 +208,7 @@ __global__ void geometry_kernel(const float* __restrict__ table, int num_tris,
 // from global memory after it. Under kCount, ``counts`` (2, H*W) receives
 // each pixel's triangle and box tests, and seen_node / seen_tri a 1 for
 // every node row and triangle-test row a walk read.
-template <bool kCount>
+template <bool kCount, bool kVisOnly>
 __global__ void geometry_bvh_kernel(BvhScene sc, const float* __restrict__ lut_normals,
                                     const float* __restrict__ lut,
                                     const float* __restrict__ lut_prev,
@@ -211,12 +230,14 @@ __global__ void geometry_bvh_kernel(BvhScene sc, const float* __restrict__ lut_n
   if (h.hit) {
     int p = 3 * h.prim;
     world = add(add(load3(sc.v0 + p), scale(h.u, load3(sc.e1 + p))), scale(h.v, load3(sc.e2 + p)));
-    const float* cur = lut + 9 * (h.prim + 1);  // slot 0 is the background
-    const float* prev = lut_prev + 9 * (h.prim + 1);
-    tv = {load3(lut_normals + 3 * (h.prim + 1)), load3(cur), load3(cur + 3), load3(cur + 6),
-          load3(prev), load3(prev + 3), load3(prev + 6)};
+    if (!kVisOnly) {
+      const float* cur = lut + 9 * (h.prim + 1);  // slot 0 is the background
+      const float* prev = lut_prev + 9 * (h.prim + 1);
+      tv = {load3(lut_normals + 3 * (h.prim + 1)), load3(cur), load3(cur + 3), load3(cur + 6),
+            load3(prev), load3(prev + 3), load3(prev + 6)};
+    }
   }
-  geometry_epilogue(x, y, width, height, prm, h, world, tv, o);
+  geometry_epilogue<kVisOnly>(x, y, width, height, prm, h, world, tv, o);
   if (kCount) {
     int pix = y * width + x;
     counts[pix] = c.tri;
@@ -224,19 +245,30 @@ __global__ void geometry_bvh_kernel(BvhScene sc, const float* __restrict__ lut_n
   }
 }
 
+using BvhFn = void (*)(BvhScene, const float*, const float*, const float*, const float*, int,
+                       int, float, float, float, GeoOut, int*, int*, int*);
+
+template <bool kVisOnly>
+BvhFn pick_bvh(bool count) {
+  return count ? geometry_bvh_kernel<true, kVisOnly> : geometry_bvh_kernel<false, kVisOnly>;
+}
+
 }  // namespace
 
+// vis_only: write vis, depth and world only (normal, lam, prev_y, prev_x,
+// albedo and out_albedo may then be null).
 extern "C" int ptsf_geometry(const float* table, int num_tris, const float* params, int width,
                              int height, float slope, float t_max, float eps, float* vis,
                              float* depth, float* normal, float* lam, int* prev_y, int* prev_x,
-                             float* world, const float* albedo, float* out_albedo,
+                             float* world, const float* albedo, float* out_albedo, int vis_only,
                              cudaStream_t stream) {
   dim3 block(16, 16);
   dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
   size_t smem = sizeof(float) * num_tris * kStride;
   GeoOut o = {vis, depth, normal, lam, prev_y, prev_x, world, albedo, out_albedo};
-  geometry_kernel<<<grid, block, smem, stream>>>(table, num_tris, params, width, height, slope,
-                                                 t_max, eps, o);
+  auto kernel = vis_only ? geometry_kernel<true> : geometry_kernel<false>;
+  kernel<<<grid, block, smem, stream>>>(table, num_tris, params, width, height, slope, t_max, eps,
+                                        o);
   return (int)cudaGetLastError();
 }
 
@@ -246,21 +278,16 @@ extern "C" int ptsf_geometry_bvh(const float* nodes, const float* tris, const fl
                                  int width, int height, float slope, float t_max, float eps,
                                  float* vis, float* depth, float* normal, float* lam,
                                  int* prev_y, int* prev_x, float* world, const float* albedo,
-                                 float* out_albedo, int* counts, int* seen_node, int* seen_tri,
-                                 cudaStream_t stream) {
+                                 float* out_albedo, int vis_only, int* counts, int* seen_node,
+                                 int* seen_tri, cudaStream_t stream) {
   dim3 block(16, 16);
   dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
   BvhScene sc = {reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(tris),
                  v0, e1, e2, nullptr, nullptr};
   GeoOut o = {vis, depth, normal, lam, prev_y, prev_x, world, albedo, out_albedo};
-  if (counts != nullptr) {
-    geometry_bvh_kernel<true><<<grid, block, 0, stream>>>(sc, lut_normals, lut, lut_prev, params,
-                                                          width, height, slope, t_max, eps, o,
-                                                          counts, seen_node, seen_tri);
-  } else {
-    geometry_bvh_kernel<false><<<grid, block, 0, stream>>>(sc, lut_normals, lut, lut_prev, params,
-                                                           width, height, slope, t_max, eps, o,
-                                                           counts, seen_node, seen_tri);
-  }
+  bool count = counts != nullptr;
+  BvhFn kernel = vis_only ? pick_bvh<true>(count) : pick_bvh<false>(count);
+  kernel<<<grid, block, 0, stream>>>(sc, lut_normals, lut, lut_prev, params, width, height, slope,
+                                     t_max, eps, o, counts, seen_node, seen_tri);
   return (int)cudaGetLastError();
 }

@@ -12,9 +12,14 @@
 // state is flat structure-of-arrays in device memory, updated in place: 12
 // float planes (origin, direction, throughput, result; x, y, z each), the
 // uint32 PCG state and an int32 alive flag -- 14 words, 116 MB at
-// 1920x1080. Segment 0 generates the primary ray from the pixel index and
-// the PCG seed, as trace_kernel does (sample s of a batch starts from the
-// seed advanced past the 2s jitter draws of the samples before it). A dead
+// 1920x1080. Segment 0 generates the primary ray from the pixel and the
+// PCG seed, as trace_kernel does (sample s of a batch starts from the seed
+// advanced past the 2s jitter draws of the samples before it). The pixel of
+// ray i is (i % width, i / width) over a whole frame, or (px[i], py[i]) in
+// the explicit-pixel mode (the pixel-list half of the TPU kernel, its
+// trace_pixels_wavefront: the path gradient's stratum pixels, the multi-res
+// coarse tail). The seed is always that of the global pixel, so a ray traces
+// what that pixel of a full frame would, bit for bit. A dead
 // ray returns at once, so the host launches every segment without reading
 // back how many rays live. The TPU kernel re-sorted the rays between
 // segments to make its cluster culling work; a per-thread walk needs no
@@ -40,6 +45,8 @@ using namespace ptsf;
 
 struct SegArgs {
   int n, seg, batch, sample;
+  const int* px;  // explicit pixels (both null: ray i is pixel i of the frame)
+  const int* py;
 };
 
 // params: cam[0:3] rot[3:12] light_pos[12:15] light_color_hdr[15:18]
@@ -53,7 +60,14 @@ __global__ void trace_segment_kernel(BvhTable sc, const float* __restrict__ para
   const int n = s.n;
   PathState p;
   if (s.seg == 0) {
-    int x = i % a.width, y = i / a.width;
+    int x, y;
+    if (s.px != nullptr) {
+      x = s.px[i];
+      y = s.py[i];
+    } else {
+      x = i % a.width;
+      y = i / a.width;
+    }
     uint32_t st = seed_per_pixel((uint32_t)x, (uint32_t)y, (uint32_t)a.frame, (uint32_t)s.batch);
     for (int k = 0; k < 2 * s.sample; ++k) st = st * 747796405u + 1u;
     float gx, gy;
@@ -134,14 +148,15 @@ extern "C" int ptsf_trace_segment(const float* nodes, const float* tris, const f
                                   float slope, float aa_sigma, float ray_eps, float t_max,
                                   float eps, float light_r, float light_r2, float first_dim,
                                   int light_through_walls, int nee, int rr_start, float rr_min,
-                                  float rr_max, float* rays, int* state, int* alive, int* counts,
-                                  int* seen_node, int* seen_tri, cudaStream_t stream) {
+                                  float rr_max, const int* px, const int* py, float* rays,
+                                  int* state, int* alive, int* counts, int* seen_node,
+                                  int* seen_tri, cudaStream_t stream) {
   BvhTable sc = {{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(tris),
                   v0, e1, e2, normals, albedo}};
   TraceArgs a = {width,   height,   frame,   0,     1,        1,        slope,
                  aa_sigma, ray_eps, t_max,   eps,   light_r,  light_r2, first_dim,
                  light_through_walls, rr_start, 0, rr_min, rr_max};
-  SegArgs s = {n, seg, batch, sample};
+  SegArgs s = {n, seg, batch, sample, px, py};
   bool count = counts != nullptr;
   SegmentFn kernel = nee ? (rr_start > 0 ? pick_segment<true, true>(count)
                                          : pick_segment<true, false>(count))

@@ -110,8 +110,8 @@ def _declare(lib) -> None:
     signatures = {
         # table, num_tris, params, width, height, slope, t_max, eps,
         # vis, depth, normal, lam, prev_y, prev_x, world, albedo,
-        # out_albedo (null: no albedo planes), stream
-        "ptsf_geometry": [p, i, p, i, i, f, f, f, p, p, p, p, p, p, p, p, p, p],
+        # out_albedo (null: no albedo planes), vis_only, stream
+        "ptsf_geometry": [p, i, p, i, i, f, f, f, p, p, p, p, p, p, p, p, p, i, p],
         # table, num_tris, params, width, height, frame, max_bounces, spp,
         # batches, slope, aa_sigma, ray_eps, t_max, eps, light_r, light_r2,
         # first_dim, light_through_walls, nee, rr_start, rr_min, rr_max,
@@ -133,15 +133,16 @@ def _declare(lib) -> None:
         "ptsf_temporal_blend_ramp": [p, p, p, p, p, p, p, p, p, p, i, i, f, f, f, i, i, p],
         # nodes, tris, v0, e1, e2, lut_normals, lut, lut_prev, params, width,
         # height, slope, t_max, eps, vis, depth, normal, lam, prev_y, prev_x,
-        # world, albedo, out_albedo (null: none), counts, seen_node,
-        # seen_tri (all three null: not counted), stream
-        "ptsf_geometry_bvh": [p] * 9 + [i, i, f, f, f] + [p] * 12 + [p],
+        # world, albedo, out_albedo (null: none), vis_only, counts,
+        # seen_node, seen_tri (all three null: not counted), stream
+        "ptsf_geometry_bvh": [p] * 9 + [i, i, f, f, f] + [p] * 9 + [i] + [p] * 3 + [p],
         # nodes, tris, v0, e1, e2, normals, albedo, params, n, width, height,
         # frame, batch, sample, seg, slope, aa_sigma, ray_eps, t_max, eps,
         # light_r, light_r2, first_dim, light_through_walls, nee, rr_start,
-        # rr_min, rr_max, rays, state, alive, counts, seen_node, seen_tri
-        # (all three null: not counted), stream
-        "ptsf_trace_segment": [p] * 8 + [i] * 7 + [f] * 8 + [i] * 3 + [f, f] + [p] * 6 + [p],
+        # rr_min, rr_max, px, py (both null: ray i is pixel i of the frame),
+        # rays, state, alive, counts, seen_node, seen_tri (all three null:
+        # not counted), stream
+        "ptsf_trace_segment": [p] * 8 + [i] * 7 + [f] * 8 + [i] * 3 + [f, f] + [p] * 8 + [p],
         # nodes, tris, planes, mask, n, t_max, eps, occluded, counts,
         # seen_node, seen_tri, stream
         "ptsf_shadow_segment": [p, p, p, p, i, f, f, p, p, p, p, p],
@@ -163,14 +164,15 @@ def library():
     return _lib
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, label: str | None = None) -> None:
     """Call C entry point ``name`` on the current stream; raise on a CUDA
-    error from the launch, and count the launch."""
+    error from the launch, and count the launch under ``label`` (default:
+    the entry point's name without its prefix)."""
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    LAUNCHES[name.removeprefix("ptsf_")] += 1
+    LAUNCHES[label or name.removeprefix("ptsf_")] += 1
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype, shape) -> None:

@@ -5,7 +5,9 @@ tensors on a CUDA device and runs :func:`geometry_pass_plain`, its plain
 PyTorch version, for tensors on the CPU. Both return
 :class:`GeometryBuffers`: everything the rest of the frame needs from the
 camera rays and the triangle tables, so the filter and the blend read
-planes instead of per-pixel LUT gathers.
+planes instead of per-pixel LUT gathers. :func:`visibility_pass` runs the
+same kernels in their visibility-only mode, the drop-in for
+ops/gbuffer.visibility_pass.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
     camera as cam_ops,
     gbuffer,
     gradient,
+    intersect,
 )
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import _build
 
@@ -117,6 +120,28 @@ def geometry_pass(tri_data, lut_prev, camera_pos, rotation, light_pos,
             view_prev, proj_prev, cfg)
     if camera_pos.device.type == "cpu":
         return geometry_pass_plain(*args, emit_albedo=emit_albedo)
+    t = tri_data.num_triangles
+    table = _dense_table(tri_data, lut_prev)
+    params = _params(*args[2:12])
+    out = _buffers(cfg, table.device, emit_albedo)
+    albedo = tri_data.albedo.contiguous()
+    _build.check_cuda("albedo", albedo, torch.float32, (t, 3))
+    _build.launch(
+        "ptsf_geometry",
+        table.data_ptr(), t, params.data_ptr(), cfg.width, cfg.height,
+        cam_ops.fov_slope(cfg.fov),
+        float(np.float32(cfg.t_max)),
+        float(np.float32(cfg.intersect_eps)),
+        *_outputs(out),
+        albedo.data_ptr(),
+        out.albedo.data_ptr() if emit_albedo else None,
+        0,
+    )
+    return out
+
+
+def _dense_table(tri_data, lut_prev) -> torch.Tensor:
+    """The dense kernel's (T, 42) shared-memory rows."""
     planes = tri_data.planes
     t = tri_data.num_triangles
     if t > MAX_TRIANGLES:
@@ -134,22 +159,8 @@ def geometry_pass(tri_data, lut_prev, camera_pos, rotation, light_pos,
         ],
         dim=1,
     ).contiguous()
-    params = _params(*args[2:12])
     _build.check_cuda("table", table, torch.float32, (t, 42))
-    out = _buffers(cfg, table.device, emit_albedo)
-    albedo = tri_data.albedo.contiguous()
-    _build.check_cuda("albedo", albedo, torch.float32, (t, 3))
-    _build.launch(
-        "ptsf_geometry",
-        table.data_ptr(), t, params.data_ptr(), cfg.width, cfg.height,
-        cam_ops.fov_slope(cfg.fov),
-        float(np.float32(cfg.t_max)),
-        float(np.float32(cfg.intersect_eps)),
-        *_outputs(out),
-        albedo.data_ptr(),
-        out.albedo.data_ptr() if emit_albedo else None,
-    )
-    return out
+    return table
 
 
 class WalkCounts(NamedTuple):
@@ -232,6 +243,54 @@ def geometry_pass_bvh(tri_data, lut_prev, camera_pos, rotation, light_pos,
         *_outputs(out),
         tri_data.albedo.data_ptr(),
         out.albedo.data_ptr() if emit_albedo else None,
+        0,
         *count_ptrs,
     )
     return out
+
+
+def visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=None,
+                    counts=None) -> gbuffer.GBuffer:
+    """The G-buffer of ops/gbuffer.visibility_pass (visibility, world
+    position, depth) in one launch of the geometry kernels' visibility-only
+    mode: the dense kernel below ops/intersect.BVH_MIN_TRIANGLES, the LBVH
+    kernel from there on (plain version for CPU tensors). ``counts``: as in
+    :func:`geometry_pass_bvh`, LBVH scenes only."""
+    if camera_pos.device.type == "cpu":
+        return gbuffer.visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=rotation)
+    if rotation is None:
+        rotation = torch.eye(3, dtype=torch.float32, device=camera_pos.device)
+    zeros3 = torch.zeros(3, dtype=torch.float32, device=camera_pos.device)
+    # the gradient's and the backprojection's parameters are not read
+    params = _params(camera_pos, rotation, zeros3, zeros3, zeros3, zeros3, view, proj, view, proj)
+    h, w = cfg.height, cfg.width
+    f32 = dict(dtype=torch.float32, device=params.device)
+    vis, depth, world = (torch.empty((h, w), **f32), torch.empty((h, w), **f32),
+                         torch.empty((h, w, 3), **f32))
+    outputs = (vis.data_ptr(), depth.data_ptr(), None, None, None, None, world.data_ptr())
+    geo_args = (cam_ops.fov_slope(cfg.fov), float(np.float32(cfg.t_max)),
+                float(np.float32(cfg.intersect_eps)))
+    t = tri_data.num_triangles
+    if intersect.uses_bvh(tri_data):
+        check_bvh(tri_data)
+        _build.check_cuda("lut", tri_data.lut, torch.float32, (t + 1, 3, 3))
+        _build.check_cuda("lut_normals", tri_data.lut_normals, torch.float32, (t + 1, 3))
+        planes = tri_data.planes
+        _build.launch(
+            "ptsf_geometry_bvh",
+            tri_data.bvh.nodes.data_ptr(), tri_data.bvh.tris.data_ptr(),
+            planes.v0.data_ptr(), planes.e1.data_ptr(), planes.e2.data_ptr(),
+            tri_data.lut_normals.data_ptr(), tri_data.lut.data_ptr(), tri_data.lut.data_ptr(),
+            params.data_ptr(), w, h, *geo_args, *outputs, None, None, 1,
+            *count_pointers(counts, w * h, tri_data),
+            label="geometry_bvh[visibility]",
+        )
+    else:
+        if counts is not None:
+            raise ValueError("counts are taken on LBVH scenes only")
+        table = _dense_table(tri_data, tri_data.lut)
+        _build.launch(
+            "ptsf_geometry", table.data_ptr(), t, params.data_ptr(), w, h, *geo_args, *outputs,
+            None, None, 1, label="geometry[visibility]",
+        )
+    return gbuffer.GBuffer(visibility=vis, world_pos=world, depth=depth)

@@ -1,15 +1,19 @@
-"""Segment tracer: the path tracer for large scenes and G-buffer seeds.
+"""Segment tracer: the path tracer for large scenes, G-buffer seeds and
+explicit pixel lists.
 
-:func:`path_trace_wavefront` is the host loop (the JAX package's
-``_wavefront_core``, ops/pallas/wavefront.py there): for each batch and
-each sample in turn it runs ``max_bounces`` segments over one set of flat
-ray arrays (:class:`RayState`), then adds each path's radiance with the
-fall-through / NEE / truncate_radiance rule, and averages as
-ops/pathtrace.trace_pixels does ((sum / spp) per batch, then / batches), so
-its image equals the one-launch tracer's bit for bit. Under
-cfg.gbuffer_primary bounce 0 is replayed off the G-buffer in PyTorch
-(ops/pathtrace.primary_carry) and its NEE shadow rays go through
-:func:`shadow_segment`; the segments then run from 1.
+:func:`trace_pixels_wavefront` is the host loop (the JAX package's
+``_wavefront_core`` and ``trace_pixels_wavefront``, ops/pallas/wavefront.py
+there) over a list of global pixels; :func:`path_trace_wavefront` is its
+call over the whole frame. For each batch and each sample in turn it runs
+``max_bounces`` segments over one set of flat ray arrays
+(:class:`RayState`), then adds each path's radiance with the fall-through /
+NEE / truncate_radiance rule, and averages as ops/pathtrace.trace_pixels
+does ((sum / spp) per batch, then / batches), so its image equals the
+one-launch tracer's bit for bit. Under cfg.gbuffer_primary bounce 0 is
+replayed off the G-buffer in PyTorch (ops/pathtrace.primary_carry) and its
+NEE shadow rays go through :func:`shadow_segment`; the segments then run
+from 1. Seeds are those of the global pixels, so a list of pixels traces
+what those pixels of a full frame would.
 
 :func:`trace_segment` and :func:`shadow_segment` launch the kernels of
 ``csrc/wavefront.cu`` for tensors on a CUDA device and run their plain
@@ -61,19 +65,23 @@ class RayState(NamedTuple):
         self.alive.copy_(alive.to(torch.int32))
 
 
-def _pixels(n: int, width: int, device):
+def _pixels(n: int, width: int, device, pixels=None):
+    """The rays' global (px, py): ``pixels`` when given, else ray i at
+    pixel (i % width, i // width) of the frame."""
+    if pixels is not None:
+        return pixels
     idx = torch.arange(n, device=device)
     return idx % width, torch.div(idx, width, rounding_mode="floor")
 
 
 def trace_segment_plain(rays: RayState, seg, batch, sample, tri_data, camera_pos, rotation,
-                        light, frame_idx, cfg) -> None:
+                        light, frame_idx, cfg, pixels=None) -> None:
     """The plain version of one segment: ops/pathtrace.bounce_step over the
     flat arrays, with ops/intersect.scene_nearest_hit; segment 0 first
     generates the camera rays as ops/pathtrace.trace_pixels does."""
     n = rays.alive.shape[0]
     if seg == 0:
-        px, py = _pixels(n, cfg.width, rays.f.device)
+        px, py = _pixels(n, cfg.width, rays.f.device, pixels)
         state, gx, gy = rng_ops.sample_jitter(px, py, frame_idx, batch, sample)
         d = cam_ops.pixel_rays(px, py, cfg.width, cfg.height, cfg.fov,
                                jitter_x=cfg.aa_sigma * gx, jitter_y=cfg.aa_sigma * gy,
@@ -99,23 +107,31 @@ def trace_segment_plain(rays: RayState, seg, batch, sample, tri_data, camera_pos
 
 
 def trace_segment(rays: RayState, seg, batch, sample, tri_data, camera_pos, rotation, light,
-                  frame_idx, cfg, counts=None) -> None:
+                  frame_idx, cfg, counts=None, pixels=None) -> None:
     """Segment ``seg`` of sample ``sample`` of batch ``batch``, in place on
-    ``rays`` (plain version for CPU tensors). ``counts``: optional
+    ``rays`` (plain version for CPU tensors). ``pixels``: the rays' global
+    (px, py), two int32 (N,) tensors; None for a whole frame, ray i at
+    pixel (i % W, i // W). ``counts``: optional
     ops/cuda/geometry.WalkCounts of N rays, to which each ray's triangle
     tests and box tests are added and in which the rows read are marked,
     for counting the work of a frame."""
     if rays.f.device.type == "cpu":
         trace_segment_plain(rays, seg, batch, sample, tri_data, camera_pos, rotation, light,
-                            frame_idx, cfg)
+                            frame_idx, cfg, pixels)
         return
     n = rays.alive.shape[0]
     _build.check_cuda("rays.f", rays.f, torch.float32, (12, n))
     _build.check_cuda("rays.state", rays.state, torch.int32, (n,))
     _build.check_cuda("rays.alive", rays.alive, torch.int32, (n,))
     count_ptrs = count_pointers(counts, n, tri_data)
-    if n != cfg.width * cfg.height:
-        raise ValueError(f"{n} rays for a {cfg.width}x{cfg.height} frame")
+    if pixels is None:
+        if n != cfg.width * cfg.height:
+            raise ValueError(f"{n} rays for a {cfg.width}x{cfg.height} frame")
+        pixel_ptrs = (None, None)
+    else:
+        for name, t in zip(("px", "py"), pixels):
+            _build.check_cuda(name, t, torch.int32, (n,))
+        pixel_ptrs = tuple(t.data_ptr() for t in pixels)
     check_bvh(tri_data)
     params = torch.cat([
         camera_pos.reshape(3), rotation.reshape(9), light.position.reshape(3),
@@ -147,6 +163,7 @@ def trace_segment(rays: RayState, seg, batch, sample, tri_data, camera_pos, rota
         int(cfg.rr_start_bounce),
         f32(cfg.rr_min_prob),
         f32(cfg.rr_max_prob),
+        *pixel_ptrs,
         rays.f.data_ptr(), rays.state.data_ptr(), rays.alive.data_ptr(),
         *count_ptrs,
     )
@@ -185,12 +202,14 @@ def shadow_segment(origins, dirs, cap, mask, tri_data, cfg, counts=None) -> torc
 
 
 def _seed_from_gbuffer(rays: RayState, primary, batch, sample, tri_data, camera_pos, rotation,
-                       light, frame_idx, cfg, counts) -> None:
+                       light, frame_idx, cfg, counts, pixels=None) -> None:
     """Bounce 0 off the G-buffer (cfg.gbuffer_primary): the center rays,
     ops/pathtrace.primary_carry with the NEE shadow test deferred to
-    :func:`shadow_segment`, written into ``rays``."""
+    :func:`shadow_segment`, written into ``rays``. ``primary`` holds the
+    G-buffer planes at the rays' pixels (``pixels`` as in
+    :func:`trace_segment`)."""
     n = rays.alive.shape[0]
-    px, py = _pixels(n, cfg.width, rays.f.device)
+    px, py = _pixels(n, cfg.width, rays.f.device, pixels)
     state, gx, gy = rng_ops.sample_jitter(px, py, frame_idx, batch, sample)
     # no primary jitter; its draws still advance the stream
     dirs = cam_ops.pixel_rays(px, py, cfg.width, cfg.height, cfg.fov,
@@ -219,28 +238,76 @@ def path_radiance(rays: RayState, cfg) -> torch.Tensor:
     return torch.where((rays.alive != 0)[None], f[6:9], f[9:12])
 
 
-def path_trace_wavefront(tri_data, camera_pos, light, frame_idx, cfg, rotation,
-                         primary=None, counts=None) -> torch.Tensor:
-    """Noisy radiance (H, W, 3) of one frame by segments (module
-    docstring). ``primary``: the G-buffer planes (vis, world_pos, normal,
-    albedo) of cfg.gbuffer_primary. ``counts``: optional
-    ops/cuda/geometry.WalkCounts of H*W rays that accumulates the work of
-    every segment and shadow launch."""
-    n = cfg.width * cfg.height
+def _trace_rays(tri_data, camera_pos, light, frame_idx, cfg, rotation, n, pixels, primary,
+                emit_throughput, counts):
+    """The host loop over ``n`` rays at ``pixels`` (None: the whole frame);
+    returns (3, N) radiance, and the (3, N) throughput with
+    ``emit_throughput``."""
     dev = camera_pos.device
     rays = RayState.empty(n, dev)
     start = 0 if primary is None else 1
     total = torch.zeros((3, n), dtype=torch.float32, device=dev)
+    thru_total = torch.zeros_like(total)
     for batch in range(cfg.sample_batches):
         summed = torch.zeros_like(total)
+        thru_sum = torch.zeros_like(total)
         for sample in range(cfg.spp):
             if primary is not None:
                 _seed_from_gbuffer(rays, primary, batch, sample, tri_data, camera_pos, rotation,
-                                   light, frame_idx, cfg, counts)
+                                   light, frame_idx, cfg, counts, pixels)
             for seg in range(start, cfg.max_bounces):
                 trace_segment(rays, seg, batch, sample, tri_data, camera_pos, rotation, light,
-                              frame_idx, cfg, counts)
+                              frame_idx, cfg, counts, pixels)
             summed = summed + path_radiance(rays, cfg)
+            if emit_throughput:
+                thru_sum = thru_sum + path_throughput(rays)
         total = total + cam_ops.true_div(summed, float(cfg.spp))
+        thru_total = thru_total + cam_ops.true_div(thru_sum, float(cfg.spp))
     out = cam_ops.true_div(total, float(cfg.sample_batches))
-    return out.T.contiguous().view(cfg.height, cfg.width, 3)
+    if emit_throughput:
+        return out, cam_ops.true_div(thru_total, float(cfg.sample_batches))
+    return out
+
+
+def path_throughput(rays: RayState) -> torch.Tensor:
+    """(3, N) path throughput after the last segment: the throughput where
+    the path goes on, 0 where it ended (ops/pathtrace.trace_paths)."""
+    f = rays.f
+    return torch.where((rays.alive != 0)[None], f[6:9], torch.zeros_like(f[6:9]))
+
+
+def trace_pixels_wavefront(tri_data, camera_pos, light, frame_idx, px, py, cfg, rotation,
+                           primary=None, emit_throughput=False, counts=None):
+    """Noisy radiance of the global pixels (``px``, ``py``), integer
+    tensors of one shape, by segments: ``px.shape + (3,)``, and the
+    truncation-point throughput of the same shape with ``emit_throughput``
+    (ops/pathtrace.trace_pixels' signature and values). ``primary``: the
+    G-buffer planes (vis, world_pos, normal, albedo) at those pixels, for
+    cfg.gbuffer_primary. ``counts``: optional ops/cuda/geometry.WalkCounts
+    of N = px.numel() rays that accumulates the work of every launch."""
+    if px.shape != py.shape:
+        raise ValueError(f"pixel lists of shapes {tuple(px.shape)} and {tuple(py.shape)}")
+    shape = tuple(px.shape)
+    pixels = tuple(t.reshape(-1).to(torch.int32).contiguous() for t in (px, py))
+    n = pixels[0].numel()
+    traced = _trace_rays(tri_data, camera_pos, light, frame_idx, cfg, rotation, n, pixels,
+                         primary, emit_throughput, counts)
+    if emit_throughput:
+        return tuple(t.T.reshape(*shape, 3) for t in traced)
+    return traced.T.reshape(*shape, 3)
+
+
+def path_trace_wavefront(tri_data, camera_pos, light, frame_idx, cfg, rotation,
+                         primary=None, emit_throughput=False, counts=None):
+    """Noisy radiance (H, W, 3) of one frame by segments (module
+    docstring), and the (H, W, 3) truncation-point throughput with
+    ``emit_throughput``. ``primary``: the G-buffer planes (vis, world_pos,
+    normal, albedo) of cfg.gbuffer_primary. ``counts``: optional
+    ops/cuda/geometry.WalkCounts of H*W rays that accumulates the work of
+    every segment and shadow launch."""
+    n = cfg.width * cfg.height
+    traced = _trace_rays(tri_data, camera_pos, light, frame_idx, cfg, rotation, n, None,
+                         primary, emit_throughput, counts)
+    if emit_throughput:
+        return tuple(t.T.contiguous().view(cfg.height, cfg.width, 3) for t in traced)
+    return traced.T.contiguous().view(cfg.height, cfg.width, 3)

@@ -180,13 +180,16 @@ def bounce_step(segment, o, d, accum, result, alive, state,
 
 
 def trace_paths(tri_data, light_pos, light_color_hdr, origins, dirs, rng_state, cfg,
-                start_segment=0, initial_carry=None):
+                emit_throughput=False, start_segment=0, initial_carry=None):
     """Trace one path per lane to termination.
 
     ``origins``/``dirs``: (..., 3); ``rng_state``: (...,) int64 PCG states
     (already advanced past the AA jitter draws). ``light_color_hdr`` is the
     HDR light color (base * cfg.light_intensity, raytrace.comp.glsl:281).
-    Returns the per-lane radiance (..., 3).
+    Returns the per-lane radiance (..., 3); with ``emit_throughput`` also
+    the path throughput at the truncation point (accum where the lane is
+    still alive after max_bounces, 0 where it ended), which the multi-res
+    split divides its residual by (ops/multires.py).
 
     ``start_segment``/``initial_carry``: resume the bounce loop from a
     carry (cfg.gbuffer_primary: :func:`primary_carry` replays bounce 0
@@ -215,8 +218,12 @@ def trace_paths(tri_data, light_pos, light_color_hdr, origins, dirs, rng_state, 
     # (raytrace.comp.glsl:270). NEE accumulates along the path instead, and
     # truncate_radiance returns only what was banked: both drop the quirk.
     if cfg.nee or cfg.truncate_radiance:
-        return result
-    return torch.where(alive[..., None], accum, result)
+        out = result
+    else:
+        out = torch.where(alive[..., None], accum, result)
+    if emit_throughput:
+        return out, torch.where(alive[..., None], accum, torch.zeros_like(accum))
+    return out
 
 
 def primary_carry(origins, dirs, state, vis, world_pos, n_geo, albedo,
@@ -247,7 +254,7 @@ def primary_carry(origins, dirs, state, vis, world_pos, n_geo, albedo,
 
 
 def trace_pixels(tri_data, camera_pos, light, frame_idx, px, py, cfg, rotation=None,
-                 primary=None):
+                 emit_throughput=False, primary=None):
     """Per-pixel seeds, AA jitter, spp loop, average
     (raytrace.comp.glsl:273-344) for explicit pixel-coordinate tensors.
 
@@ -255,6 +262,10 @@ def trace_pixels(tri_data, camera_pos, light, frame_idx, px, py, cfg, rotation=N
     shape; the output radiance has shape ``px.shape + (3,)``. Seeds and
     rays are pure functions of the coordinates, so tracing any subset of
     pixels gives the same values as those pixels of a full-frame trace.
+
+    ``emit_throughput``: also return the truncation-point throughput
+    (:func:`trace_paths`), averaged over samples and batches as the
+    radiance is.
 
     ``primary``: (vis, world_pos, n_geo, albedo) G-buffer planes aligned
     with ``px``/``py`` (cfg.gbuffer_primary): bounce 0 is replayed off them
@@ -266,9 +277,11 @@ def trace_pixels(tri_data, camera_pos, light, frame_idx, px, py, cfg, rotation=N
     shape = tuple(px.shape)
     origins = camera_pos.expand(*shape, 3)
     total = torch.zeros(shape + (3,), dtype=torch.float32, device=px.device)
+    thru_total = torch.zeros_like(total)
     for batch_idx in range(cfg.sample_batches):
         state = rng_ops.seed_per_pixel(px, py, frame_idx, batch_idx)
         summed = torch.zeros_like(total)
+        thru_sum = torch.zeros_like(total)
         for _ in range(cfg.spp):
             state, gx, gy = rng_ops.random_gaussian(state)
             dirs = cam_ops.pixel_rays(
@@ -282,20 +295,30 @@ def trace_pixels(tri_data, camera_pos, light, frame_idx, px, py, cfg, rotation=N
             # GLSL passes rngState by value into the path loop
             # (raytrace.comp.glsl:200): the next sample continues from the
             # post-jitter state, not the post-bounce one.
-            summed = summed + trace_paths(
+            traced = trace_paths(
                 tri_data, light.position, light_color_hdr, origins, dirs,
-                state, cfg, start_segment=0 if carry is None else 1, initial_carry=carry,
+                state, cfg, emit_throughput=emit_throughput,
+                start_segment=0 if carry is None else 1, initial_carry=carry,
             )
+            if emit_throughput:
+                traced, thru = traced
+                thru_sum = thru_sum + thru
+            summed = summed + traced
         total = total + cam_ops.true_div(summed, float(cfg.spp))
-    return cam_ops.true_div(total, float(cfg.sample_batches))
+        thru_total = thru_total + cam_ops.true_div(thru_sum, float(cfg.spp))
+    out = cam_ops.true_div(total, float(cfg.sample_batches))
+    if emit_throughput:
+        return out, cam_ops.true_div(thru_total, float(cfg.sample_batches))
+    return out
 
 
 def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation=None,
-                    primary=None):
+                    emit_throughput=False, primary=None):
     """Full path-trace pass over the pixel grid: :func:`trace_pixels` at
-    every pixel. Returns the noisy radiance (H, W, 3)."""
+    every pixel. Returns the noisy radiance (H, W, 3) (and the (H, W, 3)
+    truncation-point throughput with ``emit_throughput``)."""
     py, px = pixel_grid(cfg.height, cfg.width, camera_pos.device)
     return trace_pixels(
         tri_data, camera_pos, light, frame_idx, px, py, cfg, rotation=rotation,
-        primary=primary,
+        emit_throughput=emit_throughput, primary=primary,
     )

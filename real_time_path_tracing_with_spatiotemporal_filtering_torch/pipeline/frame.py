@@ -11,7 +11,10 @@ are held against. The kernel route runs hand-written CUDA kernels
 pixel coordinates and optional albedo planes), the path tracer, nine
 a-trous iterations (variance-guided under cfg.variance_guided) and the
 temporal blend (with the accumulation ramp under cfg.accumulation_ramp),
-which gathers the history at the geometry kernel's coordinates.
+which gathers the history at the geometry kernel's coordinates. The path
+gradient's re-trace and the multi-res split's traces run on the segment
+tracer's explicit-pixel mode; their gathers, box filter and upsample stay
+plain PyTorch on the card, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
     gbuffer,
     gradient,
     intersect,
+    multires,
+    pathgrad,
     pathtrace,
 )
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import (
@@ -44,23 +49,9 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene.scene impo
     TriangleData,
 )
 
-# Extensions of the JAX package this package does not run yet, each with the
-# ROADMAP item that ports it: (field, value that leaves it off, item).
-_UNPORTED = (
-    ("path_gradient", False, "Queue 1 item 8"),
-    ("indirect_split", 0, "Queue 1 item 8"),
-)
-
-
 def check_supported(cfg: RenderConfig, model=None) -> None:
-    """Raise NotImplementedError naming the first enabled extension that
-    this package does not run yet, and its ROADMAP item."""
-    for field, off, item in _UNPORTED:
-        if getattr(cfg, field) != off:
-            raise NotImplementedError(
-                f"RenderConfig.{field} is not ported to the PyTorch package "
-                f"yet (ROADMAP {item})"
-            )
+    """Raise NotImplementedError for what this package does not run yet:
+    the per-frame model matrix (every RenderConfig runs)."""
     if model is not None:
         raise NotImplementedError(
             "the per-frame model matrix is not ported to the PyTorch package "
@@ -128,9 +119,16 @@ def render_frame_impl(
         history.light_pos, light.color, history.light_color,
     )
     py = px = None
-    if cfg.variance_guided or cfg.accumulation_ramp:
+    if cfg.variance_guided or cfg.accumulation_ramp or cfg.path_gradient:
         py, px = atrous.backproject_pixels(gbuf, history.lut, history.view,
                                            history.proj, cfg)
+    if cfg.path_gradient:
+        # A-SVGF: re-trace last frame's samples under the current light;
+        # max() with the Phong proxy (their blind spots are disjoint)
+        lam = torch.maximum(lam, pathgrad.path_gradient_pass(
+            tri_data, light, frame_idx, cfg, history.noisy_lum, history.cam_pos,
+            history.cam_rot, py, px, gbuf.visibility, history.visibility,
+        ))
     # -- pass 3: path trace (raytrace.comp.glsl) --
     normal_img = tri_data.lut_normals[gbuf.visibility.to(torch.int64)]
     primary = None
@@ -138,10 +136,19 @@ def render_frame_impl(
         # bounce 0 replayed off the G-buffer; the trace starts at segment 1
         primary = (gbuf.visibility, gbuf.world_pos, normal_img,
                    atrous.albedo_image(tri_data, gbuf.visibility))
-    noisy = pathtrace.path_trace_pass(
-        tri_data, camera.position, light, frame_idx, cfg, rotation=camera.rotation,
-        primary=primary,
-    )
+    if cfg.indirect_split:
+        # full-res truncated trace + coarse full-length trace, upsampled
+        noisy = multires.multires_noisy(
+            tri_data, camera.position, light, frame_idx, cfg, normal_img, gbuf.depth,
+            rotation=camera.rotation, primary=primary,
+        )
+    else:
+        noisy = pathtrace.path_trace_pass(
+            tri_data, camera.position, light, frame_idx, cfg, rotation=camera.rotation,
+            primary=primary,
+        )
+    # before the clamp: the re-trace next frame is unclamped
+    noisy_lum = atrous.luminance(noisy) if cfg.path_gradient else None
     if cfg.firefly_clamp:
         noisy = torch.clamp_max(noisy, cfg.firefly_clamp)
     # -- pass 4: a-trous filter + temporal EMA (temporalFiltering.comp.glsl) --
@@ -174,8 +181,8 @@ def render_frame_impl(
             filtered, history.image, gbuf, history.lut, history.view,
             history.proj, frame_idx, lam, cfg,
         )
-    new_history = _next_history(rgb, gbuf.visibility, tri_data, view, proj, light,
-                                frame_idx, moments, age, cls_cur)
+    new_history = _next_history(rgb, gbuf.visibility, tri_data, view, proj, light, camera,
+                                frame_idx, cfg, moments, age, cls_cur, noisy_lum)
     if demod_s is not None:
         return atrous.modulate(rgb, demod_s), new_history
     return rgb, new_history
@@ -185,11 +192,13 @@ def _render_frame_kernels(tri_data, camera, light, history, cfg: RenderConfig):
     """The kernel route, in the order of the JAX package's Pallas frame:
     fused geometry kernel (dense or LBVH; with albedo planes under
     demodulate_albedo or gbuffer_primary), path-trace kernel (one launch,
-    or the segment tracer on large scenes and under gbuffer_primary),
-    firefly clamp, demodulation, moments at the geometry kernel's
-    backprojection, nine a-trous launches (variance-guided or not), blend
-    kernel (ramp or not), re-modulation. On CPU tensors each wrapper runs
-    its plain version, which the tests use to check this wiring."""
+    or the segment tracer on large scenes, under gbuffer_primary and under
+    indirect_split), firefly clamp, the path gradient's re-trace (segment
+    tracer, explicit pixels), demodulation, moments at the geometry
+    kernel's backprojection, nine a-trous launches (variance-guided or
+    not), blend kernel (ramp or not), re-modulation. On CPU tensors each
+    wrapper runs its plain version, which the tests use to check this
+    wiring."""
     frame_idx = history.frame
     view, proj = camera_matrices(camera, cfg)
     large = intersect.uses_bvh(tri_data)
@@ -200,10 +209,19 @@ def _render_frame_kernels(tri_data, camera, light, history, cfg: RenderConfig):
         view, proj, history.view, history.proj, cfg,
         emit_albedo=cfg.demodulate_albedo or cfg.gbuffer_primary,
     )
-    if large or cfg.gbuffer_primary:
-        primary = None
-        if cfg.gbuffer_primary:
-            primary = (geo.visibility, geo.world_pos, geo.normal, geo.albedo)
+    primary = None
+    if cfg.gbuffer_primary:
+        primary = (geo.visibility, geo.world_pos, geo.normal, geo.albedo)
+    if cfg.indirect_split:
+        # the segment tracer at any scene size: with the G-buffer seed and
+        # indirect_split = 1 the full-res trace launches no segment
+        noisy = multires.multires_noisy(
+            tri_data, camera.position, light, frame_idx, cfg, geo.normal, geo.depth,
+            rotation=camera.rotation, primary=primary,
+            trace_pass=cuda_wavefront.path_trace_wavefront,
+            trace_fn=cuda_wavefront.trace_pixels_wavefront,
+        )
+    elif large or cfg.gbuffer_primary:
         noisy = cuda_wavefront.path_trace_wavefront(
             tri_data, camera.position, light, frame_idx, cfg, camera.rotation, primary=primary
         )
@@ -211,8 +229,17 @@ def _render_frame_kernels(tri_data, camera, light, history, cfg: RenderConfig):
         noisy = cuda_pathtrace.path_trace_pass(
             tri_data, camera.position, light, frame_idx, cfg, camera.rotation
         )
+    noisy_lum = atrous.luminance(noisy) if cfg.path_gradient else None
     if cfg.firefly_clamp:
         noisy = torch.clamp_max(noisy, cfg.firefly_clamp)
+    lam = geo.lam
+    if cfg.path_gradient:
+        # the stratum re-trace on the segment tracer at any scene size
+        lam = torch.maximum(lam, pathgrad.path_gradient_pass(
+            tri_data, light, frame_idx, cfg, history.noisy_lum, history.cam_pos,
+            history.cam_rot, geo.prev_y, geo.prev_x, geo.visibility, history.visibility,
+            trace_fn=cuda_wavefront.trace_pixels_wavefront,
+        ))
     demod_s = None
     if cfg.demodulate_albedo:
         demod_s = atrous.demod_scale(geo.albedo, cfg)
@@ -231,15 +258,15 @@ def _render_frame_kernels(tri_data, camera, light, history, cfg: RenderConfig):
         prev_cons, cur_cons, cls_cur = _consistency_planes(history, geo.normal,
                                                            geo.visibility, cfg)
         rgb, age = cuda_atrous.temporal_blend_ramp(
-            filtered, history.image, geo.prev_y, geo.prev_x, frame_idx, geo.lam,
+            filtered, history.image, geo.prev_y, geo.prev_x, frame_idx, lam,
             history.age, prev_cons, cur_cons, cfg,
         )
     else:
         rgb = cuda_atrous.temporal_blend(
-            filtered, history.image, geo.prev_y, geo.prev_x, frame_idx, geo.lam, cfg
+            filtered, history.image, geo.prev_y, geo.prev_x, frame_idx, lam, cfg
         )
-    new_history = _next_history(rgb, geo.visibility, tri_data, view, proj, light,
-                                frame_idx, moments, age, cls_cur)
+    new_history = _next_history(rgb, geo.visibility, tri_data, view, proj, light, camera,
+                                frame_idx, cfg, moments, age, cls_cur, noisy_lum)
     if demod_s is not None:
         return atrous.modulate(rgb, demod_s), new_history
     return rgb, new_history
@@ -256,8 +283,8 @@ def _consistency_planes(history, normal, visibility, cfg):
     return history.visibility, visibility, None
 
 
-def _next_history(rgb, visibility, tri_data, view, proj, light, frame_idx,
-                  moments=None, age=None, vis_class=None) -> History:
+def _next_history(rgb, visibility, tri_data, view, proj, light, camera, frame_idx, cfg,
+                  moments=None, age=None, vis_class=None, noisy_lum=None) -> History:
     """The reference's end-of-frame blits (main.cpp:1361-1372), plus the
     extension planes."""
     return History(
@@ -272,6 +299,9 @@ def _next_history(rgb, visibility, tri_data, view, proj, light, frame_idx,
         moments=moments,
         age=age,
         vis_class=vis_class,
+        noisy_lum=noisy_lum,
+        cam_pos=camera.position if cfg.path_gradient else None,
+        cam_rot=camera.rotation if cfg.path_gradient else None,
     )
 
 
@@ -287,7 +317,6 @@ def init_history(tri_data: TriangleData, cfg: RenderConfig, device=None) -> Hist
     previous LUT starts as the current LUT -- the reference leaves that
     buffer uninitialized on frame 0 and nothing consumes it before frame 1.
     """
-    check_supported(cfg)
     device = tri_data.lut.device if device is None else torch.device(device)
     camera = Camera.default(device)
     light = Light.default(device)
@@ -310,4 +339,7 @@ def init_history(tri_data: TriangleData, cfg: RenderConfig, device=None) -> Hist
         moments=zeros(2) if cfg.variance_guided else None,
         age=zeros() if ramp else None,
         vis_class=zeros() if ramp and cfg.ramp_reset_mode == "normal" else None,
+        noisy_lum=zeros() if cfg.path_gradient else None,
+        cam_pos=camera.position if cfg.path_gradient else None,
+        cam_rot=camera.rotation if cfg.path_gradient else None,
     )

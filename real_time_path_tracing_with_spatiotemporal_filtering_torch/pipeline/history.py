@@ -37,6 +37,13 @@ class History:
     # (H, W) quantized-normal consistency key (ops.atrous.normal_class),
     # cfg.accumulation_ramp with ramp_reset_mode == "normal"
     vis_class: torch.Tensor | None = None
+    # cfg.path_gradient: the previous frame's raw (pre-demodulation,
+    # pre-clamp) noisy trace luminance (H, W) and the camera it was traced
+    # with, position (3,) and camera->world rotation (3, 3), so that the
+    # gradient pass can re-trace the same samples (ops/pathgrad.py)
+    noisy_lum: torch.Tensor | None = None
+    cam_pos: torch.Tensor | None = None
+    cam_rot: torch.Tensor | None = None
 
     @property
     def height(self) -> int:
@@ -58,6 +65,8 @@ def history_fields(cfg=None) -> list[str]:
             names.append("age")
             if cfg.ramp_reset_mode == "normal":
                 names.append("vis_class")
+        if cfg.path_gradient:
+            names += ["noisy_lum", "cam_pos", "cam_rot"]
     return names
 
 

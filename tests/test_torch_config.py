@@ -76,21 +76,6 @@ def test_invalid_config_rejected_by_both(kwargs):
         RenderConfig(**kwargs)
 
 
-UNPORTED = [
-    ("path_gradient", dict(adaptive_alpha=True, path_gradient=True)),
-    ("indirect_split", dict(indirect_split=2)),
-]
-
-
-@pytest.mark.parametrize("name,kwargs", UNPORTED, ids=[n for n, _ in UNPORTED])
-def test_unported_flag_raises(name, kwargs):
-    cfg = RenderConfig(width=8, height=8, **kwargs)
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP"):
-        frame.check_supported(cfg)
-    with pytest.raises(NotImplementedError):
-        Renderer(Scene.cornell_box(), cfg, device="cpu")
-
-
 EXTENSIONS = [
     ("nee", dict(nee=True)),
     ("rr_start_bounce", dict(rr_start_bounce=1)),
@@ -101,6 +86,8 @@ EXTENSIONS = [
     ("firefly_clamp", dict(firefly_clamp=2.0)),
     ("gbuffer_primary", dict(gbuffer_primary=True)),
     ("gbuffer_primary_nee", dict(gbuffer_primary=True, nee=True)),
+    ("path_gradient", dict(adaptive_alpha=True, path_gradient=True)),
+    ("indirect_split", dict(indirect_split=2)),
 ]
 
 
@@ -142,6 +129,8 @@ def test_port_does_not_import_jax():
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.geometry\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.pathtrace\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.wavefront\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.multires\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.pathgrad\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.scene.lbvh\n"
         "from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets\n"
         "p.Renderer(p.Scene.cornell_box(), p.RenderConfig(width=8, height=8, max_bounces=2),"
@@ -149,6 +138,8 @@ def test_port_does_not_import_jax():
         "presets.cornell_box_quality(device='cpu', width=8, height=8, max_bounces=2).step()\n"
         "presets.cornell_stress(splits=4, device='cpu', width=8, height=8, max_bounces=2,"
         " gbuffer_primary=True, nee=True).step()\n"
+        "presets.cornell_stress(splits=4, device='cpu', width=8, height=8, max_bounces=2,"
+        " adaptive_alpha=True, path_gradient=True, indirect_split=1).step()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('real_time_path_tracing_with_spatiotemporal_filtering_tpu')]\n"
         "assert not bad, bad\n"

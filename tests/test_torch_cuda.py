@@ -376,3 +376,125 @@ def test_cornell_stress_default_runs_on_the_kernel_route(dev):
     _build.LAUNCHES.clear()
     assert torch.isfinite(r.step()).all()
     assert _build.LAUNCHES["geometry_bvh"] == 1 and _build.LAUNCHES["trace_segment"] == 4
+
+
+# --- the path-gradient / multi-res slice: explicit pixels, visibility mode ---
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["stratum_pixels", "seeded_coarse_tail"])
+def test_explicit_pixel_segments_equal_plain(dev, seeded):
+    """The segment tracer's explicit-pixel mode on 32,768 triangles at 160x128:
+    at the path gradient's stratum pixels from segment 0, or on the phased
+    coarse tail seeded from the G-buffer from segment 1, each segment's ray
+    state equals the plain segment's on the same input, and the whole trace
+    equals ops/pathtrace.trace_pixels."""
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
+        multires,
+        pathgrad,
+        pathtrace,
+    )
+
+    cfg = RenderConfig(width=160, height=128, max_bounces=6, rr_start_bounce=2,
+                       indirect_split=1, indirect_stride=4, gbuffer_primary=seeded,
+                       indirect_jitter=True)
+    td = _stress(32, dev)
+    cam, light = _orbit(1, dev), Light.default(dev)
+    _, tail_cfg = multires.split_cfgs(cfg)
+    primary = None
+    if seeded:
+        phase = multires.grid_phase(5, cfg.indirect_stride)
+        py, px = multires.coarse_pixels(cfg, phase, dev)
+        view, proj = frame.camera_matrices(cam, cfg)
+        geo = cuda_geometry.geometry_pass_bvh(td, td.lut, cam.position, cam.rotation,
+                                              light.position, light.position, light.color,
+                                              light.color, view, proj, view, proj, cfg,
+                                              emit_albedo=True)
+        primary = tuple(multires._subsample(p, cfg.indirect_stride, phase)
+                        for p in (geo.visibility, geo.world_pos, geo.normal, geo.albedo))
+    else:
+        py, px = pathgrad.stratum_pixels(cfg.height, cfg.width, 4, 3, dev)
+    pixels = tuple(t.reshape(-1).to(torch.int32).contiguous() for t in (px, py))
+    n = pixels[0].numel()
+    rays = cuda_wavefront.RayState.empty(n, dev)
+    start = 0
+    if seeded:
+        cuda_wavefront._seed_from_gbuffer(rays, primary, 0, 0, td, cam.position, cam.rotation,
+                                          light, 5, tail_cfg, None, pixels)
+        start = 1
+    _build.LAUNCHES.clear()
+    for seg in range(start, tail_cfg.max_bounces):
+        plain = cuda_wavefront.RayState(*(t.clone() for t in rays))
+        cuda_wavefront.trace_segment(rays, seg, 0, 0, td, cam.position, cam.rotation, light, 5,
+                                     tail_cfg, pixels=pixels)
+        cuda_wavefront.trace_segment_plain(plain, seg, 0, 0, td, cam.position, cam.rotation,
+                                           light, 5, tail_cfg, pixels)
+        for a, b in zip(rays, plain):
+            assert torch.equal(a, b), seg
+    assert _build.LAUNCHES["trace_segment"] == tail_cfg.max_bounces - start
+    got = cuda_wavefront.trace_pixels_wavefront(td, cam.position, light, 5, px, py, tail_cfg,
+                                                cam.rotation, primary=primary)
+    want = pathtrace.trace_pixels(td, cam.position, light, 5, px, py, tail_cfg,
+                                  rotation=cam.rotation, primary=primary)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("splits", [None, 32], ids=["dense", "lbvh"])
+def test_visibility_mode_equals_plain(dev, splits):
+    """The geometry kernels' visibility-only mode gives ops/gbuffer.
+    visibility_pass's planes and the full mode's, bit for bit, in one launch."""
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import gbuffer
+
+    cfg = RenderConfig(width=320, height=192)
+    td = (precompute_triangle_data(Scene.cornell_box(), dev) if splits is None
+          else _stress(splits, dev))
+    cam, light = _orbit(2, dev), Light.default(dev)
+    view, proj = frame.camera_matrices(cam, cfg)
+    _build.LAUNCHES.clear()
+    got = cuda_geometry.visibility_pass(td, cam.position, view, proj, cfg, rotation=cam.rotation)
+    name = "geometry[visibility]" if splits is None else "geometry_bvh[visibility]"
+    assert dict(_build.LAUNCHES) == {name: 1}
+    want = gbuffer.visibility_pass(td, cam.position, view, proj, cfg, rotation=cam.rotation)
+    full_pass = cuda_geometry.geometry_pass if splits is None else cuda_geometry.geometry_pass_bvh
+    full = full_pass(td, td.lut, cam.position, cam.rotation, light.position, light.position,
+                     light.color, light.color, view, proj, view, proj, cfg)
+    for name in want._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert torch.equal(getattr(got, name), getattr(full, name)), name
+
+
+@pytest.mark.parametrize(
+    "path, per_frame",
+    [("D", {"geometry_bvh": 1, "trace_segment": 7, "atrous_iter_var": 9,
+            "temporal_blend_ramp": 1}),
+     ("E", {"geometry": 1, "trace": 1, "trace_segment": 32, "atrous_iter_var": 9,
+            "temporal_blend_ramp": 1})],
+)
+def test_gradient_paths_routes_agree(dev, path, per_frame):
+    """Path D (the JAX suite's row 4c'': 32,768 triangles, multi-res
+    indirect, G-buffer seed, grid jitter, variance-guided SVGF, the ramp;
+    orbit camera) at 160x128 and path E (row 2e: the Cornell box with the
+    path gradient under a drifting light) at 512x512: both routes agree
+    frame by frame over 2 frames, with the expected launches."""
+    if path == "D":
+        flags = dict(width=160, height=128, max_bounces=8, rr_start_bounce=2,
+                     adaptive_alpha=True, indirect_split=1, indirect_stride=4,
+                     gbuffer_primary=True, indirect_jitter=True, variance_guided=True,
+                     accumulation_ramp=True, ramp_reset_mode="normal")
+        r_k = presets.cornell_stress(splits=32, device=dev, **flags)
+        r_p = presets.cornell_stress(splits=32, device=dev, backend="xla", **flags)
+    else:
+        cfg = RenderConfig(width=512, height=512, variance_guided=True, accumulation_ramp=True,
+                           path_gradient=True)
+        r_k = Renderer(Scene.cornell_box(), cfg, device=dev)
+        r_p = Renderer(Scene.cornell_box(), dataclasses.replace(cfg, backend="xla"), device=dev)
+    _build.LAUNCHES.clear()
+    for i in range(2):
+        for r in (r_k, r_p):
+            if path == "D":
+                r.camera = _orbit(i, dev)
+            else:
+                r.move_light(dx=0.05)
+        a, b = r_k.step(), r_p.step()
+        assert torch.isfinite(a).all()
+        assert torch.isclose(a, b, rtol=0, atol=1e-3).double().mean().item() >= 0.99
+        assert (a - b).abs().mean().item() <= 1e-4
+    assert dict(_build.LAUNCHES) == {k: 2 * v for k, v in per_frame.items()}
