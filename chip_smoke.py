@@ -37,7 +37,16 @@ filtering_torch/csrc`` with nvcc, then:
   ramp in "normal" mode; 4 frames at 1920x1080) and path E (the Cornell
   box with the path gradient, variance-guided SVGF and the ramp under a
   drifting light; 8 frames at 512x512);
-- times both routes with CUDA events.
+- times both routes with CUDA events;
+- reports the lane efficiency of the two trace kernels (lanes doing work
+  over 32 x warp steps, counted by their counting instantiations) as
+  ``lane_eff`` on the ``trace`` and ``trace_segment`` records and modes,
+  and checks that the segment kernel's live lists hold exactly the rays
+  that go on;
+- models, from the same runs' path lengths and walk steps, the lane
+  efficiency the earlier designs of the two kernels (one thread per pixel;
+  one thread per ray slot) would have had on the same work, and prints it
+  on a line of its own, apart from what was measured.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 (with each kernel's bound: the least time the card could take for the same
@@ -206,6 +215,53 @@ def trace_bound(pt_mod, td, cam, light, frame_idx, cfg) -> dict:
     return bound(12 * cfg.width * cfg.height + 108 * td.num_triangles, TRI_TEST_OPS * tests)
 
 
+def lane_share(lanes) -> tuple:
+    """(outer loop, walks) lane efficiency from a kernel's four lane counts:
+    lanes that did the work over 32 x warp steps."""
+    a, b, c, d = (int(v) for v in lanes.tolist())
+    return a / max(32 * b, 1), c / max(32 * d, 1)
+
+
+# Modelled, not measured: the lane efficiency the earlier designs of the
+# trace kernels would have had on each run's work, by record or mode; printed
+# on a line of its own.
+MODELLED: dict = {}
+
+
+def one_thread_per_pixel_share(path_len) -> float:
+    """A model of the bounce loop's lane efficiency in the earlier dense
+    kernel (one thread per pixel on 16x16 blocks, a warp = 2 rows x 16
+    columns, the sample loop around the path), from each sample's path
+    length: a warp runs, for each sample, the longest path among its lanes.
+    An upper bound: it counts no other divergence."""
+    import torch
+
+    s, h, w = path_len.shape
+    padded = torch.zeros((s, -(-h // 16) * 16, -(-w // 16) * 16), dtype=torch.int64,
+                         device=path_len.device)
+    padded[:, :h, :w] = path_len
+    warps = padded.reshape(s, padded.shape[1] // 2, 2, padded.shape[2] // 16, 16)
+    steps = warps.amax(dim=(2, 4)).sum().item()
+    return path_len.sum(dtype=torch.int64).item() / max(32 * steps, 1)
+
+
+def trace_lane_eff(pt_mod, td, cam, light, frame_idx, cfg, label: str) -> dict:
+    """The dense trace kernel's lane efficiency on these inputs (its
+    counting instantiation): the bounce loop and the triangle loops. The
+    earlier kernel's, modelled from the same paths, goes to MODELLED under
+    ``label``."""
+    import torch
+
+    lanes = torch.zeros(4, dtype=torch.int64, device=td.lut.device)
+    path_len = torch.zeros((cfg.sample_batches * cfg.spp, cfg.height, cfg.width),
+                           dtype=torch.int32, device=td.lut.device)
+    pt_mod.path_trace_pass(td, cam.position, light, frame_idx, cfg, cam.rotation,
+                           path_len=path_len, lanes=lanes)
+    loop, walk = lane_share(lanes)
+    MODELLED[label] = dict(bounce_loop_one_thread_per_pixel=one_thread_per_pixel_share(path_len))
+    return dict(bounce_loop=loop, triangle_loops=walk)
+
+
 def geometry_bound(cfg, t: int, albedo: bool = False) -> dict:
     per_pixel = 44 + (12 if albedo else 0)
     return bound(per_pixel * cfg.width * cfg.height + 168 * t + (12 * t if albedo else 0),
@@ -274,15 +330,19 @@ def kernel_phase(pt, cuda_ops, dev):
     bad = share_outside(k_noisy, p_noisy, 1e-5, 1e-5)
     print(f"trace: max_abs {max_abs(k_noisy, p_noisy):.3e}, share outside 1e-5 {bad:.3e}")
     check(torch.isfinite(k_noisy).all().item(), "trace output finite")
-    check(bad <= 1e-3, "trace within 1e-5 (abs+rel) on >= 99.9% of elements")
+    check(torch.equal(k_noisy, p_noisy), "trace bit-equal to its plain version")
+    again = pt_mod.path_trace_pass(td, cam.position, light, 5, cfg, cam.rotation)
+    check(torch.equal(again, k_noisy), "trace: a second launch gives the same bits")
     records.append(record(
         "trace", "pathtrace.cu", "ops/pallas/pathtrace.py:1716",
         max_abs_err=max_abs(k_noisy, p_noisy),
         ms=time_ms(lambda: pt_mod.path_trace_pass(td, cam.position, light, 5, cfg, cam.rotation), 10),
         plain_ms=time_ms(lambda: pt_mod.path_trace_pass_plain(
             td, cam.position, light, 5, cfg, rotation=cam.rotation), 2, warmup=1),
+        lane_eff=trace_lane_eff(pt_mod, td, cam, light, 5, cfg, f"trace parity {w}x{h}"),
         **trace_bound(pt_mod, td, cam, light, 5, cfg),
     ))
+    print(f"trace lane efficiency {w}x{h}: {records[-1]['lane_eff']}")
     # the instantiation that counts triangle tests serves the bound only
     tests = torch.zeros((h, w), dtype=torch.int32, device=dev)
     counting_ms = time_ms(
@@ -454,7 +514,7 @@ def svgf_kernel_phase(pt, cuda_ops, dev, records) -> None:
         err = max_abs(kn, pn)
         print(f"trace {label} {w}x{h}: max_abs {err:.3e}, share outside 1e-5 {bad:.3e}")
         check(torch.isfinite(kn).all().item(), f"trace {label} finite")
-        check(bad <= 1e-3, f"trace {label} within 1e-5 (abs+rel) on >= 99.9% of elements")
+        check(torch.equal(kn, pn), f"trace {label} bit-equal to its plain version")
         trace_rec["max_abs_err"] = max(trace_rec["max_abs_err"], err)
         trace_rec["modes"].append(dict(
             mode=f"{label}, {w}x{h}", max_abs_err=err,
@@ -462,7 +522,9 @@ def svgf_kernel_phase(pt, cuda_ops, dev, records) -> None:
                        5, warmup=1),
             plain_ms=time_ms(lambda: pt_mod.path_trace_pass_plain(
                 td, cam.position, light, 5, c, rotation=cam.rotation), 1, warmup=0),
+            lane_eff=trace_lane_eff(pt_mod, td, cam, light, 5, c, f"trace {label} {w}x{h}"),
             **trace_bound(pt_mod, td, cam, light, 5, c)))
+        print(f"trace {label} lane efficiency: {trace_rec['modes'][-1]['lane_eff']}")
 
 
 def golden_phase(pt, dev) -> None:
@@ -660,24 +722,30 @@ def stress_geo_args(pt, td, cfg, dev):
 
 def segments_agree(wf, td, cfg, cam, light, frame_idx, label: str, only=None):
     """The segments of every sample of a frame (those in ``only``, or all),
-    kernel against plain on the same input ray state; returns (max abs
-    error, plain ms per segment)."""
+    kernel against plain on the same input ray state, bit for bit, each
+    launch after a sample's first on the live list the launch before wrote;
+    returns (max abs error, plain ms per segment)."""
     import torch
 
     n = cfg.width * cfg.height
     rays = wf.RayState.empty(n, td.lut.device)
+    lists = wf.LiveLists(n, td.lut.device)
     err, plain_s, launches = 0.0, 0.0, 0
     for batch in range(cfg.sample_batches):
         for sample in range(cfg.spp):
             for seg in range(cfg.max_bounces):
                 if only is not None and seg not in only:
                     wf.trace_segment(rays, seg, batch, sample, td, cam.position, cam.rotation,
-                                     light, frame_idx, cfg)
+                                     light, frame_idx, cfg, first=seg == 0, lists=lists)
                     continue
                 plain = wf.RayState(*(t.clone() for t in rays))
                 wf.trace_segment(rays, seg, batch, sample, td, cam.position, cam.rotation,
-                                 light, frame_idx, cfg)
+                                 light, frame_idx, cfg, first=seg == 0, lists=lists)
                 torch.cuda.synchronize()
+                listed = torch.sort(lists.last_list()).values
+                if not torch.equal(listed, torch.nonzero(rays.alive).squeeze(1).to(torch.int32)):
+                    check(False, f"trace_segment {label} b{batch} s{sample} seg {seg}: the live "
+                                 "list holds exactly the rays that go on")
                 t0 = time.perf_counter()
                 wf.trace_segment_plain(plain, seg, batch, sample, td, cam.position,
                                        cam.rotation, light, frame_idx, cfg)
@@ -685,30 +753,77 @@ def segments_agree(wf, td, cfg, cam, light, frame_idx, label: str, only=None):
                 plain_s += time.perf_counter() - t0
                 launches += 1
                 err = max(err, max_abs(rays.f, plain.f))
-                bad = max(share_outside(rays.f, plain.f, 1e-5, 1e-5),
-                          (rays.state != plain.state).double().mean().item(),
-                          (rays.alive != plain.alive).double().mean().item())
-                if bad > 1e-4:
-                    check(False, f"trace_segment {label} b{batch} s{sample} seg {seg} "
-                                 "within 1e-5 on >= 99.99% of the ray state")
+                if not all(torch.equal(a, b) for a, b in zip(rays, plain)):
+                    check(False, f"trace_segment {label} b{batch} s{sample} seg {seg}: ray "
+                                 "state bit-equal to the plain version")
     print(f"trace_segment {label}: {launches} segments against the plain version, "
           f"max_abs {err:.3e}", flush=True)
-    check(True, f"trace_segment {label}: each checked segment's ray state within 1e-5")
+    check(True, f"trace_segment {label}: each checked segment's ray state bit-equal and its "
+                "live list the rays that go on")
     return err, 1e3 * plain_s / launches
 
 
-def frame_segments(wf, td, cfg, cam, light, frame_idx, counts=None, live=None):
-    """One 1-sample frame's segments on the card. With ``live`` (a list),
-    appends the number of live rays before each launch (a host read)."""
+def frame_segments(wf, td, cfg, cam, light, frame_idx, counts=None, live=None, lanes=None,
+                   after=None):
+    """One 1-sample frame's segments on the card, launched as the host loop
+    launches them (one SegmentLaunches), each launch after the first on the
+    live list the launch before wrote. With ``live`` (a list), appends the
+    number of live rays before each launch (a host read); ``after`` is
+    called after each launch."""
     import torch
 
     n = cfg.width * cfg.height
     rays = wf.RayState.empty(n, td.lut.device)
+    launch = wf.SegmentLaunches(rays, td, cam.position, cam.rotation, light, frame_idx, cfg,
+                                counts, lanes=lanes)
     for seg in range(cfg.max_bounces):
         if live is not None:
             live.append(n if seg == 0 else int(rays.alive.sum(dtype=torch.int64).item()))
-        wf.trace_segment(rays, seg, 0, 0, td, cam.position, cam.rotation, light, frame_idx,
-                         cfg, counts=counts)
+        launch(seg, 0, 0, seg == 0)
+        if after is not None:
+            after()
+
+
+class SlotWarps:
+    """A model of the walks' lane efficiency in the earlier segment kernel
+    (one thread per ray slot, a warp = 32 consecutive slots), called after
+    each launch: each ray's walk steps are its box tests / 2 in ``counts``
+    (zeroed here after each launch), and a warp takes as many walk steps as
+    its longest lane. An upper bound: it counts no other divergence."""
+
+    def __init__(self, counts):
+        self.counts, self.lanes, self.steps = counts, 0, 0
+
+    def __call__(self) -> None:
+        import torch
+
+        steps = self.counts.tests[1].to(torch.int64) // 2
+        warps = torch.nn.functional.pad(steps, (0, -steps.numel() % 32)).view(-1, 32)
+        self.lanes += int(steps.sum().item())
+        self.steps += int(warps.amax(dim=1).sum().item())
+        self.counts.tests.zero_()
+
+    def share(self) -> float:
+        return self.lanes / max(32 * self.steps, 1)
+
+
+def segment_lane_eff(td, run, label: str) -> dict:
+    """The segment kernel's lane efficiency over ``run(counts, lanes,
+    after)``'s launches (``after`` called after each): the loop over rays
+    and the walks. The earlier one-thread-per-slot kernel's walks, modelled
+    from the same launches, go to MODELLED under ``label``."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.geometry import (
+        WalkCounts,
+    )
+
+    lanes = torch.zeros(4, dtype=torch.int64, device=td.lut.device)
+    model = SlotWarps(WalkCounts.zeros(run.n, td))
+    run(model.counts, lanes, model)
+    loop, walk = lane_share(lanes)
+    MODELLED[label] = dict(walks_one_thread_per_slot=model.share())
+    return dict(ray_loop=loop, walks=walk)
 
 
 def segment_record_fields(wf, td, cfg, cam, light, frame_idx) -> dict:
@@ -731,7 +846,16 @@ def segment_record_fields(wf, td, cfg, cam, light, frame_idx) -> dict:
     fields = walk_bound(counts, state_bytes + 72 * segs, per_tri=60)
     fields["bound_ms"] /= segs
     ms = time_ms(lambda: frame_segments(wf, td, cfg, cam, light, frame_idx), 3, warmup=1) / segs
-    return dict(ms=ms, live_rays=live, **fields)
+
+    def run(counts, lanes, after):
+        frame_segments(wf, td, cfg, cam, light, frame_idx, counts, lanes=lanes, after=after)
+
+    run.n = n
+    lane_eff = segment_lane_eff(
+        td, run, f"trace_segment {cfg.width}x{cfg.height} {td.num_triangles} tris")
+    print(f"trace_segment {cfg.width}x{cfg.height} {td.num_triangles} tris: {ms:.4f} ms per "
+          f"launch; live rays {live}; lane efficiency {lane_eff}", flush=True)
+    return dict(ms=ms, live_rays=live, lane_eff=lane_eff, **fields)
 
 
 def large_kernel_phase(pt, dev, records) -> None:
@@ -891,18 +1015,24 @@ def large_kernel_phase(pt, dev, records) -> None:
 
 
 def pixel_segments(wf, td, cfg, cam, light, frame_idx, pixels, rays, start: int, counts=None,
-                   live=None) -> None:
+                   live=None, lanes=None, after=None) -> None:
     """The explicit-pixel segments ``start``..max_bounces - 1 of a 1-sample
-    trace of ``rays`` at ``pixels`` on the card. With ``live`` (a list),
-    appends the number of live rays before each launch (a host read)."""
+    trace of ``rays`` at ``pixels`` on the card, launched as the host loop
+    launches them (one SegmentLaunches), each launch after the first on the
+    live list the launch before wrote. With ``live`` (a list), appends the
+    number of live rays before each launch (a host read); ``after`` is
+    called after each launch."""
     import torch
 
     n = rays.alive.shape[0]
+    launch = wf.SegmentLaunches(rays, td, cam.position, cam.rotation, light, frame_idx, cfg,
+                                counts, pixels, lanes)
     for seg in range(start, cfg.max_bounces):
         if live is not None:
             live.append(n if seg == 0 else int(rays.alive.sum(dtype=torch.int64).item()))
-        wf.trace_segment(rays, seg, 0, 0, td, cam.position, cam.rotation, light, frame_idx, cfg,
-                         counts=counts, pixels=pixels)
+        launch(seg, 0, 0, seg == start)
+        if after is not None:
+            after()
 
 
 def explicit_pixel_mode(wf, td, cfg, cam, light, frame_idx, pixels, primary, label: str,
@@ -935,10 +1065,11 @@ def explicit_pixel_mode(wf, td, cfg, cam, light, frame_idx, pixels, primary, lab
         return wf.RayState(*(t.clone() for t in seeded))
 
     rays, err, plain_s = fresh(), 0.0, 0.0
+    lists = wf.LiveLists(n, dev)
     for seg in range(start, cfg.max_bounces):
         plain = wf.RayState(*(t.clone() for t in rays))
         wf.trace_segment(rays, seg, 0, 0, td, cam.position, cam.rotation, light, frame_idx, cfg,
-                         pixels=pixels)
+                         pixels=pixels, first=seg == start, lists=lists)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         wf.trace_segment_plain(plain, seg, 0, 0, td, cam.position, cam.rotation, light,
@@ -946,7 +1077,9 @@ def explicit_pixel_mode(wf, td, cfg, cam, light, frame_idx, pixels, primary, lab
         torch.cuda.synchronize()
         plain_s += time.perf_counter() - t0
         err = max(err, max_abs(rays.f, plain.f))
-        same = all(torch.equal(a, b) for a, b in zip(rays, plain))
+        same = all(torch.equal(a, b) for a, b in zip(rays, plain)) and torch.equal(
+            torch.sort(lists.last_list()).values,
+            torch.nonzero(rays.alive).squeeze(1).to(torch.int32))
         if not same:
             check(False, f"trace_segment explicit pixels {label} segment {seg}: ray state "
                          "bit-equal to the plain version")
@@ -971,8 +1104,18 @@ def explicit_pixel_mode(wf, td, cfg, cam, light, frame_idx, pixels, primary, lab
         events.append((a, b))
     torch.cuda.synchronize()
     ms = sum(a.elapsed_time(b) for a, b in events[1:]) / (len(events) - 1) / launches
+
+    def run(counts, lanes, after):
+        pixel_segments(wf, td, cfg, cam, light, frame_idx, pixels, fresh(), start, counts,
+                       lanes=lanes, after=after)
+
+    run.n = n
+    lane_eff = segment_lane_eff(td, run, f"trace_segment explicit pixels {label}")
+    print(f"trace_segment explicit pixels {label}: {ms:.4f} ms per launch; lane efficiency "
+          f"{lane_eff}", flush=True)
     return dict(mode=f"{label}, per launch", max_abs_err=err, ms=ms,
-                plain_ms=1e3 * plain_s / launches, rays=n, live_rays=live, on_path=path, **fields)
+                plain_ms=1e3 * plain_s / launches, rays=n, live_rays=live, lane_eff=lane_eff,
+                on_path=path, **fields)
 
 
 def visibility_mode(pt, geo_mod, td, cfg, cam, dev, label: str) -> dict:
@@ -1254,7 +1397,8 @@ def main() -> int:
     order = ["name", "route", "source", "replaces", "launches", "launches_by_path",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "modes"]
     order += ["tri_tests", "box_tests", "node_rows_read", "tri_rows_read", "committed_tris",
-              "live_rays"]
+              "live_rays", "lane_eff"]
+    print(json.dumps({"modelled_not_measured_lane_eff_of_earlier_designs": MODELLED}))
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in records]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

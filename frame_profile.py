@@ -2,7 +2,8 @@
 """Where the time of a frame goes, on one CUDA card.
 
     python3 frame_profile.py [--configs default,default_1080p,quality,interactive,
-                                        stress32,stress88,recommended32,pathgrad512]
+                                        stress32,stress88,stress32c,recommended32,
+                                        pathgrad512]
                              [--out frame_profiles]
 
 For each configuration, renders 5 warm-up frames through
@@ -11,8 +12,9 @@ clock (the last one synchronised), then profiles 20 more with
 ``torch.profiler`` and reads the device's kernels from the exported trace.
 Prints one line per configuration with ms/frame (host clock, unprofiled and
 profiled), the device's busy time per frame (the union of its kernel
-intervals), its idle share, and each kernel's device ms and launches per
-frame. The static camera and light leave every frame's work the same.
+intervals), its idle share, each kernel's device ms and launches per
+frame, and, for a kernel launched several times a frame, its mean device us
+at each position in the frame. The static camera and light leave every frame's work the same.
 The plain PyTorch parts of the path gradient and the multi-res split
 (``ops/pathgrad.path_gradient_pass`` with its ``box3_filter`` passes, and
 ``ops/multires.combine_planes``) run inside ``torch.profiler`` ranges during
@@ -25,7 +27,8 @@ the ``cornell_box_quality`` and ``cornell_box_interactive`` presets
 (1920x1080). ``stress32`` and ``stress88`` are the large scenes of
 ``presets.cornell_stress`` at 1920x1080 seen by the orbit camera at azimuth
 0: 32,768 triangles with 8 bounces, Russian roulette from bounce 2 and
-adaptive alpha, and 247,808 triangles in the default parity config.
+adaptive alpha, and 247,808 triangles in the default parity config;
+``stress32c`` is ``stress32`` with the G-buffer seed and NEE (path C).
 ``recommended32`` is the JAX suite's row 4c'' (``stress32`` with multi-res
 indirect at split 1 and stride 4, the G-buffer seed, grid jitter,
 variance-guided SVGF and the ramp in "normal" mode) and ``pathgrad512`` its
@@ -51,6 +54,7 @@ INTERACTIVE = dict(max_bounces=8, rr_start_bounce=2, adaptive_alpha=True)
 STRESS = {
     "stress32": (32, INTERACTIVE),
     "stress88": (88, {}),
+    "stress32c": (32, dict(INTERACTIVE, gbuffer_primary=True, nee=True)),
     "recommended32": (32, dict(INTERACTIVE, indirect_split=1, indirect_stride=4,
                                gbuffer_primary=True, indirect_jitter=True, variance_guided=True,
                                accumulation_ramp=True, ramp_reset_mode="normal")),
@@ -176,8 +180,23 @@ def profile(pt, name: str, out: str) -> dict:
         config=name, width=r.cfg.width, height=r.cfg.height, frames=FRAMES,
         ms_per_frame=wall_ms, ms_per_frame_profiled=prof_ms, device_busy_ms=busy_ms,
         idle_share=1.0 - busy_ms / prof_ms, kernels=_per_kernel(kernels)["kernels"],
-        plain_ranges=ranges,
+        us_by_launch=_by_launch(kernels), plain_ranges=ranges,
     )
+
+
+def _by_launch(kernels) -> dict:
+    """For each kernel launched several times a frame, its mean device us
+    at each position in the frame (the segment tracer's segments in order)."""
+    per_name = collections.defaultdict(list)
+    for e in sorted(kernels, key=lambda e: e["ts"]):
+        per_name[_kernel_name(e)].append(e["dur"])
+    out = {}
+    for name, durs in per_name.items():
+        per = len(durs) // FRAMES
+        if per > 1 and per * FRAMES == len(durs):
+            out[name] = [sum(durs[f * per + k] for f in range(FRAMES)) / FRAMES
+                         for k in range(per)]
+    return out
 
 
 def _per_kernel(kernels) -> dict:
@@ -196,7 +215,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--configs",
                         default="default,default_1080p,quality,interactive,stress32,stress88,"
-                                "recommended32,pathgrad512")
+                                "stress32c,recommended32,pathgrad512")
     parser.add_argument("--out", default="frame_profiles")
     args = parser.parse_args()
     if not torch.cuda.is_available():

@@ -14,7 +14,6 @@
 
 namespace ptsf {
 
-constexpr int kTraceStride = 27;  // 21 intersect | unit normal 3 | albedo 3
 constexpr float kInvPi = (float)(1.0 / 3.14159265);
 
 struct TraceArgs {
@@ -24,29 +23,83 @@ struct TraceArgs {
   float rr_min, rr_max;
 };
 
-// The dense scene: rows of kTraceStride floats, tested in index order.
+// A dense table row (ops/cuda/pathtrace.pack_table): n, d0 | n1, d1 |
+// n2, d2 (the 12 test constants, floats 0-11) | v0 e1 e2 (12-20) | unit
+// normal (21-23) | albedo (24-26). In shared memory a row takes 32 floats
+// (128 bytes, the last 5 unused), so a test reads its constants as three
+// 16-byte loads.
+constexpr int kRowFloats = 27;
+constexpr int kRowVec = 8;
+
+// Copy the (rows, 27) table into 128-byte shared-memory rows, all threads
+// of a 1-D block.
+__device__ __forceinline__ void stage_rows(float4* dst, const float* __restrict__ src, int rows) {
+  float* d = reinterpret_cast<float*>(dst);
+  for (int i = threadIdx.x; i < rows * kRowFloats; i += blockDim.x) {
+    int r = i / kRowFloats;
+    d[r * 4 * kRowVec + (i - r * kRowFloats)] = __ldg(src + i);
+  }
+}
+
+// The dense scene: a shared-memory table, every triangle tested in index
+// order.
 struct DenseTable {
-  const float* tab;
+  const float4* tab;
   int num_tris;
 
+  __device__ __forceinline__ bool test(int i, V3 o, V3 d, float t_max, float eps, float& t,
+                                       float& u, float& v) const {
+    const float4* r = tab + i * kRowVec;
+    float4 a = r[0], b = r[1], e = r[2];
+    return tri_test(v3(a.x, a.y, a.z), a.w, v3(b.x, b.y, b.z), b.w, v3(e.x, e.y, e.z), e.w, o, d,
+                    t_max, eps, t, u, v);
+  }
+  __device__ __forceinline__ const float* row(int prim) const {
+    return reinterpret_cast<const float*>(tab + prim * kRowVec);
+  }
+
+  // argmin over t_cand (invalid -> 2 t_max) takes the first minimum: a
+  // strict < in triangle order does the same (common.cuh nearest_hit).
   template <bool kCount>
   __device__ __forceinline__ Hit nearest(V3 o, V3 d, float t_max, float eps, Counts& c) const {
     if (kCount) c.tri += num_tris;
-    return nearest_hit(tab, kTraceStride, num_tris, o, d, t_max, eps);
+    float best = INFINITY;
+    Hit h = {false, 0, 0.0f, 0.0f, 0.0f};
+    const float miss_t = 2.0f * t_max;
+    for (int i = 0; i < num_tris; ++i) {
+      if (kCount) count_lanes(c.walk_lanes, c.walk_steps);
+      float t, u, v;
+      bool valid = test(i, o, d, t_max, eps, t, u, v);
+      float t_cand = valid ? t : miss_t;
+      if (t_cand < best) {
+        best = t_cand;
+        h = {valid, i, t, u, v};
+      }
+    }
+    if (!h.hit) return {false, 0, t_max, 0.0f, 0.0f};
+    return h;
   }
+  // Whether any triangle is hit at a distance t <= cap: the same boolean
+  // as "the nearest hit is at t <= cap", since the nearest valid t is <=
+  // cap exactly when some valid t is. Stops at the first such triangle.
   template <bool kCount>
   __device__ __forceinline__ bool occluded(V3 o, V3 d, float cap, float t_max, float eps,
                                            Counts& c) const {
-    return any_hit_within<kCount>(tab, kTraceStride, num_tris, o, d, cap, t_max, eps, c.tri);
+    for (int i = 0; i < num_tris; ++i) {
+      if (kCount) {
+        ++c.tri;
+        count_lanes(c.walk_lanes, c.walk_steps);
+      }
+      float t, u, v;
+      if (test(i, o, d, t_max, eps, t, u, v) && t <= cap) return true;
+    }
+    return false;
   }
-  __device__ __forceinline__ V3 normal(int prim) const {
-    return load3(tab + prim * kTraceStride + 21);
-  }
-  __device__ __forceinline__ V3 albedo(int prim) const {
-    return load3(tab + prim * kTraceStride + 24);
-  }
+  __device__ __forceinline__ V3 normal(int prim) const { return load3(row(prim) + 21); }
+  __device__ __forceinline__ V3 albedo(int prim) const { return load3(row(prim) + 24); }
   __device__ __forceinline__ V3 position(const Hit& h) const {
-    return hit_position(tab, kTraceStride, h);
+    const float* r = row(h.prim);
+    return add(add(load3(r + 12), scale(h.u, load3(r + 15))), scale(h.v, load3(r + 18)));
   }
 };
 

@@ -85,6 +85,7 @@ __device__ __forceinline__ void bvh_walk(const BvhScene& s, V3 o, V3 d, const fl
     if (kCount) {
       c.box += 2;
       c.seen_node[node] = 1;
+      count_lanes(c.walk_lanes, c.walk_steps);
     }
     if (hit_l && left < 0 && leaf(-1 - left)) return;
     if (hit_r && right < 0 && leaf(-1 - right)) return;

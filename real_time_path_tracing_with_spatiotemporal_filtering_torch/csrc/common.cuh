@@ -10,6 +10,8 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
+
 #include <cuda_runtime.h>
 
 namespace ptsf {
@@ -98,8 +100,9 @@ __device__ __forceinline__ V3 pixel_ray(int x, int y, float jx, float jy, int wi
 }
 
 // --- nearest hit (ops/intersect.py) --------------------------------------
-// Triangle rows start with the 21 intersection constants:
-// v0[0:3] e1[3:6] e2[6:9] n[9:12] d0[12] n1[13:16] d1[16] n2[17:20] d2[20]
+// The geometry kernel's triangle rows start with the 21 intersection
+// constants: v0[0:3] e1[3:6] e2[6:9] n[9:12] d0[12] n1[13:16] d1[16]
+// n2[17:20] d2[20] (the trace kernel's rows: bounce.cuh DenseTable).
 struct Hit {
   bool hit;
   int prim;
@@ -108,12 +111,81 @@ struct Hit {
 
 // Work counted by the kernels' counting instantiations (for the bounds):
 // ray/triangle tests and ray/box slab tests, and (LBVH walks) a 1 in
-// seen_node[i] / seen_tri[p] for every node row and triangle-test row read.
+// seen_node[i] / seen_tri[p] for every node row and triangle-test row read;
+// and, for the lane efficiency of the walks, the lane steps of their loops
+// (count_lanes).
 struct Counts {
   int tri, box;
   int* seen_node;
   int* seen_tri;
+  unsigned walk_lanes, walk_steps;
 };
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ __forceinline__ unsigned lane_id() {
+  unsigned r;
+  asm("mov.u32 %0, %%laneid;" : "=r"(r));
+  return r;
+}
+
+// Lanes below the calling one, as a mask.
+__device__ __forceinline__ unsigned lanes_below() {
+  unsigned r;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(r));
+  return r;
+}
+
+// Lane efficiency: one step of a loop. Every lane that runs the step adds 1
+// to ``lanes``, the lowest of the warp's lanes that run it together adds 1
+// to ``steps``; lanes / (32 steps) is the share of the warp's lane slots
+// that did the loop's work.
+__device__ __forceinline__ void count_lanes(unsigned& lanes, unsigned& steps) {
+  unsigned m = __activemask();
+  lanes += 1;
+  if ((int)lane_id() == __ffs(m) - 1) steps += 1;
+}
+
+// Adds a warp's lane counts to out[0:4] (the outer loop's lanes and steps,
+// the walks' lanes and steps); all 32 lanes call it together.
+__device__ __forceinline__ void flush_lanes(unsigned long long* out, unsigned loop_lanes,
+                                            unsigned loop_steps, const Counts& c) {
+  unsigned v[4] = {loop_lanes, loop_steps, c.walk_lanes, c.walk_steps};
+  for (int k = 0; k < 4; ++k) {
+    unsigned sum = __reduce_add_sync(kFullMask, v[k]);
+    if (lane_id() == 0) atomicAdd(out + k, (unsigned long long)sum);
+  }
+}
+
+// Blocks of ``block`` threads with ``smem`` bytes of dynamic shared memory
+// that the card holds at once (all SMs): the grid of a persistent kernel.
+// Kept per (kernel, block, shared memory, device) after the first query.
+template <class Kernel>
+inline int resident_blocks(Kernel kernel, int block, size_t smem) {
+  struct Entry {
+    const void* fn;
+    int block;
+    size_t smem;
+    int dev, blocks;
+  };
+  static Entry cache[64];
+  static int used = 0;
+  static std::mutex lock;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> hold(lock);
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.fn == fn && e.block == block && e.smem == smem && e.dev == dev) return e.blocks;
+  }
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem);
+  int blocks = per_sm > 0 ? per_sm * sms : 1;
+  if (used < 64) cache[used++] = {fn, block, smem, dev, blocks};
+  return blocks;
+}
 
 // One ray/triangle test from the plane constants n, d0, n1, d1, n2, d2:
 // the hit distance t and the barycentrics u, v, and whether the hit is
@@ -157,22 +229,6 @@ __device__ __forceinline__ Hit nearest_hit(const float* tab, int stride, int num
   }
   if (!h.hit) return {false, 0, t_max, 0.0f, 0.0f};
   return h;
-}
-
-// Whether any triangle is hit at a distance t <= cap: the same boolean as
-// "the nearest hit is at t <= cap", since the nearest valid t is <= cap
-// exactly when some valid t is. Stops at the first such triangle; under
-// kCount adds the number of triangles tested to ``tests``.
-template <bool kCount>
-__device__ __forceinline__ bool any_hit_within(const float* tab, int stride, int num_tris, V3 o,
-                                               V3 d, float cap, float t_max, float eps,
-                                               int& tests) {
-  for (int i = 0; i < num_tris; ++i) {
-    if (kCount) ++tests;
-    float t, u, v;
-    if (tri_test(tab + i * stride, o, d, t_max, eps, t, u, v) && t <= cap) return true;
-  }
-  return false;
 }
 
 // v0 + u*e1 + v*e2 of the committed triangle (ops/intersect.hit_position).

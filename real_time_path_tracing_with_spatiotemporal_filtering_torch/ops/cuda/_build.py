@@ -115,9 +115,10 @@ def _declare(lib) -> None:
         # table, num_tris, params, width, height, frame, max_bounces, spp,
         # batches, slope, aa_sigma, ray_eps, t_max, eps, light_r, light_r2,
         # first_dim, light_through_walls, nee, rr_start, rr_min, rr_max,
-        # truncate, out, tests_out (null: not counted), stream
+        # truncate, fetch, out, tests_out, path_len, lanes (all three null:
+        # not counted), stream
         "ptsf_trace": [p, i, p, i, i, i, i, i, i, f, f, f, f, f, f, f, f, i, i, i, f, f, i,
-                       p, p, p],
+                       p, p, p, p, p, p],
         # color_in, normal, depth, color_out, width, height, k, sigma_n,
         # sigma_z, sigma_l, stream
         "ptsf_atrous_iter": [p, p, p, p, i, i, i, f, f, f, p],
@@ -140,9 +141,11 @@ def _declare(lib) -> None:
         # frame, batch, sample, seg, slope, aa_sigma, ray_eps, t_max, eps,
         # light_r, light_r2, first_dim, light_through_walls, nee, rr_start,
         # rr_min, rr_max, px, py (both null: ray i is pixel i of the frame),
-        # rays, state, alive, counts, seen_node, seen_tri (all three null:
-        # not counted), stream
-        "ptsf_trace_segment": [p] * 8 + [i] * 7 + [f] * 8 + [i] * 3 + [f, f] + [p] * 8 + [p],
+        # live_in (null: every slot), live_in_ctr, live_out, live_out_ctr,
+        # live_zero_ctr, rays, state, alive, counts, seen_node,
+        # seen_tri (all three null: not counted), lanes (null: not counted),
+        # stream
+        "ptsf_trace_segment": [p] * 8 + [i] * 7 + [f] * 8 + [i] * 3 + [f, f] + [p] * 14 + [p],
         # nodes, tris, planes, mask, n, t_max, eps, occluded, counts,
         # seen_node, seen_tri, stream
         "ptsf_shadow_segment": [p, p, p, p, i, f, f, p, p, p, p, p],

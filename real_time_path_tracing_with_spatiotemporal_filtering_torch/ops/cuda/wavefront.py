@@ -17,9 +17,11 @@ what those pixels of a full frame would.
 
 :func:`trace_segment` and :func:`shadow_segment` launch the kernels of
 ``csrc/wavefront.cu`` for tensors on a CUDA device and run their plain
-PyTorch versions for tensors on the CPU. Every segment is launched, dead
-rays return at once, and nothing is read back to the host, so a frame's
-launch count is fixed.
+PyTorch versions for tensors on the CPU. Every segment is launched and
+nothing is read back to the host, so a frame's launch count is fixed.
+Every launch writes the list of the rays that go on (:class:`LiveLists`).
+The first launch of a path runs every ray slot; each later one runs only
+the rays still alive, from the list the launch before wrote.
 """
 
 from __future__ import annotations
@@ -65,6 +67,57 @@ class RayState(NamedTuple):
         self.alive.copy_(alive.to(torch.int32))
 
 
+class LiveLists:
+    """The live-ray lists of the segment kernel, for launches over up to
+    ``capacity`` ray slots: three rotating int32 lists, each with two int32
+    counters (slots listed, slots fetched). Launch j reads list j % 3,
+    appends the rays that go on to list (j + 1) % 3 and zeroes the counters
+    of list (j + 2) % 3, so the counters are zeroed once, here, and never by
+    a launch of their own. The launches that use one LiveLists must run in
+    order on one stream."""
+
+    def __init__(self, capacity: int, device):
+        self.capacity = capacity
+        self.slots = torch.empty((3, capacity), dtype=torch.int32, device=device)
+        self.counters = torch.zeros((3, 2), dtype=torch.int32, device=device)
+        self._slot_ptrs = [self.slots[k].data_ptr() for k in range(3)]
+        self._ctr_ptrs = [self.counters[k].data_ptr() for k in range(3)]
+        self._launch = 0
+
+    def pointers(self, first: bool) -> tuple:
+        """The five list pointers of the next launch: the list read (None
+        for the ``first`` launch of a path: every slot) and its counters,
+        the list written and its counters, the counters zeroed. The launch
+        is then taken as made."""
+        j = self._launch
+        read, write, zero = j, (j + 1) % 3, (j + 2) % 3
+        self._launch = write
+        return (None if first else self._slot_ptrs[read], self._ctr_ptrs[read],
+                self._slot_ptrs[write], self._ctr_ptrs[write], self._ctr_ptrs[zero])
+
+    def last_list(self) -> torch.Tensor:
+        """The slots the last launch listed, in listed order (reads the
+        count back to the host; for checks)."""
+        k = self._launch
+        return self.slots[k, : int(self.counters[k, 0].item())]
+
+
+_LIVE_LISTS: dict = {}
+
+
+def live_lists(n: int, device) -> LiveLists:
+    """The LiveLists of the current stream of ``device``, with room for
+    ``n`` slots. One per stream, reused from frame to frame and replaced by
+    a larger one when ``n`` outgrows it: its counters are zeroed when it is
+    made, and a frame adds no launch to zero them."""
+    device = torch.device(device)
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    lists = _LIVE_LISTS.get(key)
+    if lists is None or lists.capacity < n:
+        lists = _LIVE_LISTS[key] = LiveLists(n, device)
+    return lists
+
+
 def _pixels(n: int, width: int, device, pixels=None):
     """The rays' global (px, py): ``pixels`` when given, else ray i at
     pixel (i % width, i // width) of the frame."""
@@ -106,67 +159,110 @@ def trace_segment_plain(rays: RayState, seg, batch, sample, tri_data, camera_pos
     rays.store(o, d, accum, result, state, alive)
 
 
+class SegmentLaunches:
+    """The segment kernel's launches over one :class:`RayState`: what stays
+    the same from launch to launch (the scene, camera, light, frame, config,
+    pixels, counters and the rays' arrays) is checked and converted once,
+    here, so that each launch costs the host only its own arguments. The
+    arguments are those of :func:`trace_segment`; the arrays must keep
+    their storage while the launches run (the host loop writes the rays in
+    place)."""
+
+    def __init__(self, rays: RayState, tri_data, camera_pos, rotation, light, frame_idx, cfg,
+                 counts=None, pixels=None, lanes=None, lists=None):
+        n = rays.alive.shape[0]
+        _build.check_cuda("rays.f", rays.f, torch.float32, (12, n))
+        _build.check_cuda("rays.state", rays.state, torch.int32, (n,))
+        _build.check_cuda("rays.alive", rays.alive, torch.int32, (n,))
+        count_ptrs = count_pointers(counts, n, tri_data)
+        if lanes is not None:
+            if counts is None:
+                raise ValueError("lanes are counted only with counts")
+            _build.check_cuda("lanes", lanes, torch.int64, (4,))
+        if lists is None:
+            lists = live_lists(n, rays.f.device)
+        elif lists.capacity < n:
+            raise ValueError(f"live lists of {lists.capacity} slots for {n} rays")
+        self.lists = lists
+        if pixels is None:
+            if n != cfg.width * cfg.height:
+                raise ValueError(f"{n} rays for a {cfg.width}x{cfg.height} frame")
+            pixel_ptrs = (None, None)
+        else:
+            for name, t in zip(("px", "py"), pixels):
+                _build.check_cuda(name, t, torch.int32, (n,))
+            pixel_ptrs = tuple(t.data_ptr() for t in pixels)
+        check_bvh(tri_data)
+        self._params = torch.cat([
+            camera_pos.reshape(3), rotation.reshape(9), light.position.reshape(3),
+            (light.color * cfg.light_intensity).reshape(3),
+        ]).contiguous()
+        _build.check_cuda("params", self._params, torch.float32, (18,))
+        planes = tri_data.planes
+
+        def f32(x) -> float:
+            return float(np.float32(x))
+
+        self._head = (
+            tri_data.bvh.nodes.data_ptr(), tri_data.bvh.tris.data_ptr(),
+            planes.v0.data_ptr(), planes.e1.data_ptr(), planes.e2.data_ptr(),
+            tri_data.normals.data_ptr(), tri_data.albedo.data_ptr(), self._params.data_ptr(),
+            n, cfg.width, cfg.height, int(frame_idx),
+        )
+        self._mid = (
+            cam_ops.fov_slope(cfg.fov),
+            f32(cfg.aa_sigma),
+            f32(cfg.ray_offset_eps),
+            f32(cfg.t_max),
+            f32(cfg.intersect_eps),
+            f32(cfg.light_radius),
+            # Python squares the radius in double, then the float32 op rounds
+            f32(cfg.light_radius * cfg.light_radius),
+            f32(1.0 / cfg.first_hit_light_dim),
+            int(cfg.light_through_walls),
+            int(cfg.nee),
+            int(cfg.rr_start_bounce),
+            f32(cfg.rr_min_prob),
+            f32(cfg.rr_max_prob),
+            *pixel_ptrs,
+        )
+        self._tail = (
+            rays.f.data_ptr(), rays.state.data_ptr(), rays.alive.data_ptr(),
+            *count_ptrs, None if lanes is None else lanes.data_ptr(),
+        )
+
+    def __call__(self, seg: int, batch: int, sample: int, first: bool) -> None:
+        """Launch segment ``seg`` of sample ``sample`` of batch ``batch``
+        (``first`` as in :func:`trace_segment`)."""
+        _build.launch("ptsf_trace_segment", *self._head, batch, sample, seg, *self._mid,
+                      *self.lists.pointers(first), *self._tail)
+
+
 def trace_segment(rays: RayState, seg, batch, sample, tri_data, camera_pos, rotation, light,
-                  frame_idx, cfg, counts=None, pixels=None) -> None:
+                  frame_idx, cfg, counts=None, pixels=None, first=True, lists=None,
+                  lanes=None) -> None:
     """Segment ``seg`` of sample ``sample`` of batch ``batch``, in place on
     ``rays`` (plain version for CPU tensors). ``pixels``: the rays' global
     (px, py), two int32 (N,) tensors; None for a whole frame, ray i at
-    pixel (i % W, i // W). ``counts``: optional
+    pixel (i % W, i // W). ``first``: the launch starts a path and runs
+    every ray slot (at a segment after 0, those whose alive flag is set);
+    else it runs the rays the launch before on ``lists`` listed, which must
+    have been segment ``seg - 1`` of these rays. Either way it lists the
+    rays that go on. ``lists``: a :class:`LiveLists` (None: those of the
+    current stream, :func:`live_lists`). ``counts``: optional
     ops/cuda/geometry.WalkCounts of N rays, to which each ray's triangle
     tests and box tests are added and in which the rows read are marked,
-    for counting the work of a frame."""
+    for counting the work of a frame; with it, ``lanes`` ((4,) int64,
+    optional) accumulates the lane efficiency: lanes that ran a ray and
+    warp steps of the kernel's loop over rays, lanes that ran a walk step
+    and warp steps of the walks. A loop over segments makes one
+    :class:`SegmentLaunches` instead."""
     if rays.f.device.type == "cpu":
         trace_segment_plain(rays, seg, batch, sample, tri_data, camera_pos, rotation, light,
                             frame_idx, cfg, pixels)
         return
-    n = rays.alive.shape[0]
-    _build.check_cuda("rays.f", rays.f, torch.float32, (12, n))
-    _build.check_cuda("rays.state", rays.state, torch.int32, (n,))
-    _build.check_cuda("rays.alive", rays.alive, torch.int32, (n,))
-    count_ptrs = count_pointers(counts, n, tri_data)
-    if pixels is None:
-        if n != cfg.width * cfg.height:
-            raise ValueError(f"{n} rays for a {cfg.width}x{cfg.height} frame")
-        pixel_ptrs = (None, None)
-    else:
-        for name, t in zip(("px", "py"), pixels):
-            _build.check_cuda(name, t, torch.int32, (n,))
-        pixel_ptrs = tuple(t.data_ptr() for t in pixels)
-    check_bvh(tri_data)
-    params = torch.cat([
-        camera_pos.reshape(3), rotation.reshape(9), light.position.reshape(3),
-        (light.color * cfg.light_intensity).reshape(3),
-    ]).contiguous()
-    _build.check_cuda("params", params, torch.float32, (18,))
-    planes = tri_data.planes
-
-    def f32(x) -> float:
-        return float(np.float32(x))
-
-    _build.launch(
-        "ptsf_trace_segment",
-        tri_data.bvh.nodes.data_ptr(), tri_data.bvh.tris.data_ptr(),
-        planes.v0.data_ptr(), planes.e1.data_ptr(), planes.e2.data_ptr(),
-        tri_data.normals.data_ptr(), tri_data.albedo.data_ptr(), params.data_ptr(),
-        n, cfg.width, cfg.height, int(frame_idx), batch, sample, seg,
-        cam_ops.fov_slope(cfg.fov),
-        f32(cfg.aa_sigma),
-        f32(cfg.ray_offset_eps),
-        f32(cfg.t_max),
-        f32(cfg.intersect_eps),
-        f32(cfg.light_radius),
-        # Python squares the radius in double, then the float32 op rounds
-        f32(cfg.light_radius * cfg.light_radius),
-        f32(1.0 / cfg.first_hit_light_dim),
-        int(cfg.light_through_walls),
-        int(cfg.nee),
-        int(cfg.rr_start_bounce),
-        f32(cfg.rr_min_prob),
-        f32(cfg.rr_max_prob),
-        *pixel_ptrs,
-        rays.f.data_ptr(), rays.state.data_ptr(), rays.alive.data_ptr(),
-        *count_ptrs,
-    )
+    SegmentLaunches(rays, tri_data, camera_pos, rotation, light, frame_idx, cfg, counts, pixels,
+                    lanes, lists)(seg, batch, sample, first)
 
 
 def shadow_segment_plain(origins, dirs, cap, mask, tri_data, cfg) -> torch.Tensor:
@@ -245,6 +341,13 @@ def _trace_rays(tri_data, camera_pos, light, frame_idx, cfg, rotation, n, pixels
     ``emit_throughput``."""
     dev = camera_pos.device
     rays = RayState.empty(n, dev)
+    if dev.type == "cuda":
+        segment = SegmentLaunches(rays, tri_data, camera_pos, rotation, light, frame_idx, cfg,
+                                  counts, pixels)
+    else:
+        def segment(seg, batch, sample, first):
+            trace_segment_plain(rays, seg, batch, sample, tri_data, camera_pos, rotation, light,
+                                frame_idx, cfg, pixels)
     start = 0 if primary is None else 1
     total = torch.zeros((3, n), dtype=torch.float32, device=dev)
     thru_total = torch.zeros_like(total)
@@ -256,8 +359,7 @@ def _trace_rays(tri_data, camera_pos, light, frame_idx, cfg, rotation, n, pixels
                 _seed_from_gbuffer(rays, primary, batch, sample, tri_data, camera_pos, rotation,
                                    light, frame_idx, cfg, counts, pixels)
             for seg in range(start, cfg.max_bounces):
-                trace_segment(rays, seg, batch, sample, tri_data, camera_pos, rotation, light,
-                              frame_idx, cfg, counts, pixels)
+                segment(seg, batch, sample, seg == start)
             summed = summed + path_radiance(rays, cfg)
             if emit_throughput:
                 thru_sum = thru_sum + path_throughput(rays)

@@ -308,8 +308,9 @@ def test_segment_tracer_equals_trace_kernel(dev, overrides):
 
 
 def test_trace_segment_equals_plain(dev):
-    """Each segment of a NEE + RR path on 32,768 triangles: ray state after
-    the kernel equals the plain segment's on the same input."""
+    """Each segment of a NEE + RR path on 32,768 triangles, each launch
+    after the first on the live list the launch before wrote: ray state
+    after the kernel equals the plain segment's on the same input."""
     cfg = RenderConfig(width=160, height=128, max_bounces=6, nee=True, rr_start_bounce=2)
     td = _stress(32, dev)
     cam, light = _orbit(1, dev), Light.default(dev)
@@ -319,7 +320,7 @@ def test_trace_segment_equals_plain(dev):
     for seg in range(cfg.max_bounces):
         plain = cuda_wavefront.RayState(*(t.clone() for t in rays))
         cuda_wavefront.trace_segment(rays, seg, 0, 1, td, cam.position, cam.rotation, light, 3,
-                                     cfg, counts=counts)
+                                     cfg, counts=counts, first=seg == 0)
         cuda_wavefront.trace_segment_plain(plain, seg, 0, 1, td, cam.position, cam.rotation,
                                            light, 3, cfg)
         for a, b in zip(rays, plain):
@@ -424,7 +425,7 @@ def test_explicit_pixel_segments_equal_plain(dev, seeded):
     for seg in range(start, tail_cfg.max_bounces):
         plain = cuda_wavefront.RayState(*(t.clone() for t in rays))
         cuda_wavefront.trace_segment(rays, seg, 0, 0, td, cam.position, cam.rotation, light, 5,
-                                     tail_cfg, pixels=pixels)
+                                     tail_cfg, pixels=pixels, first=seg == start)
         cuda_wavefront.trace_segment_plain(plain, seg, 0, 0, td, cam.position, cam.rotation,
                                            light, 5, tail_cfg, pixels)
         for a, b in zip(rays, plain):
@@ -498,3 +499,114 @@ def test_gradient_paths_routes_agree(dev, path, per_frame):
         assert torch.isclose(a, b, rtol=0, atol=1e-3).double().mean().item() >= 0.99
         assert (a - b).abs().mean().item() <= 1e-4
     assert dict(_build.LAUNCHES) == {k: 2 * v for k, v in per_frame.items()}
+
+
+# --- the redesigned trace kernels: pixel-persistent dense tracer, live-list
+# segment tracer ---
+
+SMALL = dict(width=96, height=64)
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [dict(), dict(nee=True), dict(rr_start_bounce=2), dict(spp=3, sample_batches=2),
+     dict(truncate_radiance=True), dict(nee=True, spp=2, rr_start_bounce=1, max_bounces=5)],
+    ids=["parity", "nee", "rr2", "spp3_batches2", "truncate", "nee_spp2_rr1"],
+)
+def test_trace_kernel_bit_equal_to_plain(dev, overrides):
+    """The persistent dense kernel gives the plain tracer's image bit for
+    bit, and its counting launch the same image and a lane efficiency."""
+    cfg = RenderConfig(**SMALL, **overrides)
+    td = precompute_triangle_data(Scene.cornell_box(), dev)
+    cam, light = Camera.default(dev), Light.default(dev)
+    k = cuda_pathtrace.path_trace_pass(td, cam.position, light, 4, cfg, cam.rotation)
+    p = cuda_pathtrace.path_trace_pass_plain(td, cam.position, light, 4, cfg,
+                                             rotation=cam.rotation)
+    assert torch.equal(k, p)
+    lanes = torch.zeros(4, dtype=torch.int64, device=dev)
+    path_len = torch.zeros((cfg.sample_batches * cfg.spp, cfg.height, cfg.width),
+                           dtype=torch.int32, device=dev)
+    counted = cuda_pathtrace.path_trace_pass(td, cam.position, light, 4, cfg, cam.rotation,
+                                             path_len=path_len, lanes=lanes)
+    assert torch.equal(counted, k)
+    assert path_len.min().item() >= 1 and path_len.max().item() <= cfg.max_bounces
+    # every bounce of every path is one lane step of the bounce loop
+    assert lanes[0].item() == path_len.sum(dtype=torch.int64).item()
+    assert 0 < lanes[0].item() <= 32 * lanes[1].item()
+    assert 0 < lanes[2].item() <= 32 * lanes[3].item()
+
+
+@pytest.mark.parametrize("mode", ["frame", "pixels", "gbuffer_seed"])
+def test_segment_tracer_bit_equal_to_plain(dev, mode):
+    """The live-list segment tracer over a whole frame, on explicit pixels
+    and with the G-buffer seed (32,768 triangles, NEE and RR): bit-equal to
+    the plain tracer."""
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import pathtrace
+
+    cfg = RenderConfig(**SMALL, max_bounces=6, nee=True, rr_start_bounce=1,
+                       gbuffer_primary=mode == "gbuffer_seed")
+    td = _stress(32, dev)
+    cam, light = _orbit(2, dev), Light.default(dev)
+    _build.LAUNCHES.clear()
+    if mode == "pixels":
+        g = torch.Generator().manual_seed(5)
+        px = torch.randint(0, cfg.width, (40, 30), generator=g).to(dev)
+        py = torch.randint(0, cfg.height, (40, 30), generator=g).to(dev)
+        got = cuda_wavefront.trace_pixels_wavefront(td, cam.position, light, 4, px, py, cfg,
+                                                    cam.rotation)
+        want = pathtrace.trace_pixels(td, cam.position, light, 4, px, py, cfg,
+                                      rotation=cam.rotation)
+    else:
+        primary = None
+        if mode == "gbuffer_seed":
+            view, proj = frame.camera_matrices(cam, cfg)
+            geo = cuda_geometry.geometry_pass_bvh(td, td.lut, cam.position, cam.rotation,
+                                                  light.position, light.position, light.color,
+                                                  light.color, view, proj, view, proj, cfg,
+                                                  emit_albedo=True)
+            primary = (geo.visibility, geo.world_pos, geo.normal, geo.albedo)
+        got = cuda_wavefront.path_trace_wavefront(td, cam.position, light, 4, cfg, cam.rotation,
+                                                  primary=primary)
+        want = pathtrace.path_trace_pass(td, cam.position, light, 4, cfg, rotation=cam.rotation,
+                                         primary=primary)
+    assert _build.LAUNCHES["trace_segment"] == cfg.max_bounces - cfg.gbuffer_primary
+    assert torch.equal(got, want)
+
+
+def test_trace_kernels_repeat_bit_for_bit(dev):
+    """Two launches on the same inputs give the same bits: the atomics and
+    the order in which warps take pixels and rays change nothing."""
+    cfg = RenderConfig(**SMALL, nee=True, spp=2, rr_start_bounce=2, max_bounces=8)
+    td = precompute_triangle_data(Scene.cornell_box(), dev)
+    cam, light = Camera.default(dev), Light.default(dev)
+    first = cuda_pathtrace.path_trace_pass(td, cam.position, light, 6, cfg, cam.rotation)
+    for _ in range(3):
+        assert torch.equal(cuda_pathtrace.path_trace_pass(td, cam.position, light, 6, cfg,
+                                                          cam.rotation), first)
+    big = _stress(32, dev)
+    first = cuda_wavefront.path_trace_wavefront(big, cam.position, light, 6, cfg, cam.rotation)
+    for _ in range(3):
+        assert torch.equal(cuda_wavefront.path_trace_wavefront(big, cam.position, light, 6, cfg,
+                                                               cam.rotation), first)
+
+
+def test_live_lists_hold_the_live_rays(dev):
+    """After each launch the list it wrote holds exactly the slots of the
+    rays that go on, and a launch from that list equals one that starts a
+    path there (every slot, by the alive flags)."""
+    cfg = RenderConfig(**SMALL, max_bounces=6, rr_start_bounce=1)
+    td = _stress(32, dev)
+    cam, light = _orbit(1, dev), Light.default(dev)
+    n = cfg.width * cfg.height
+    rays = cuda_wavefront.RayState.empty(n, dev)
+    every = cuda_wavefront.RayState.empty(n, dev)
+    live = cuda_wavefront.LiveLists(n, dev)
+    other = cuda_wavefront.LiveLists(n, dev)
+    for seg in range(cfg.max_bounces):
+        for r, lists, first in ((rays, live, seg == 0), (every, other, True)):
+            cuda_wavefront.trace_segment(r, seg, 0, 0, td, cam.position, cam.rotation, light, 2,
+                                         cfg, first=first, lists=lists)
+        listed = torch.sort(live.last_list()).values
+        assert torch.equal(listed, torch.nonzero(rays.alive).squeeze(1).to(torch.int32)), seg
+        for a, b in zip(rays, every):
+            assert torch.equal(a, b), seg
