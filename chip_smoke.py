@@ -6,9 +6,9 @@
 Builds the CUDA kernels from ``real_time_path_tracing_with_spatiotemporal_
 filtering_torch/csrc`` with nvcc, then:
 
-- checks each kernel against its plain PyTorch version on the card: the
-  default-config kernels at the reference's 1000x800 frame, and the SVGF and
-  estimator modes (variance-guided a-trous, the ramp blend, the tracer with
+- checks each kernel against its plain PyTorch version on the card, bit
+  for bit (``torch.equal``): the default-config kernels at the reference's
+  1000x800 frame, and the SVGF and estimator modes (variance-guided a-trous, the ramp blend, the tracer with
   NEE / Russian roulette / several samples / truncate_radiance, the
   geometry kernel's albedo planes) at 1920x1080;
 - checks the kernel route against the repository's golden images;
@@ -37,7 +37,21 @@ filtering_torch/csrc`` with nvcc, then:
   ramp in "normal" mode; 4 frames at 1920x1080) and path E (the Cornell
   box with the path gradient, variance-guided SVGF and the ramp under a
   drifting light; 8 frames at 512x512);
-- times both routes with CUDA events;
+- checks the eight micro-kernels (csrc/micro.cu, the JAX package's Mosaic
+  micro-benchmarks) against their plain twins at two iteration counts, bit
+  for bit on the output and every carry, then runs the port's
+  micro-benchmark (benchmarks/mosaic_micro.py) at the JAX counts, with its
+  launches counted as the path ``mosaic_micro``: ns per iteration by slope;
+  the last timed launch at each count must give out == x with finite
+  carries, and, but for the vec primitives, equal its plain twin bit for
+  bit at the lower count;
+- runs the measurement entry points: ``bench_torch.run_bench`` at 1920x1080
+  and the port's benchmark suite in ``--quick`` mode with device time,
+  printing their JSON lines, each with its launch counts;
+- times each kernel as the device time of its launches, read from a
+  ``torch.profiler`` trace (``ms``; the host's cost of the call does not
+  enter it), beside CUDA events around back-to-back wrapper calls
+  (``call_ms``), and times the frames of both routes with CUDA events;
 - reports the lane efficiency of the two trace kernels (lanes doing work
   over 32 x warp steps, counted by their counting instantiations) as
   ``lane_eff`` on the ``trace`` and ``trace_segment`` records and modes,
@@ -61,6 +75,7 @@ import dataclasses
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -147,29 +162,34 @@ def check(cond: bool, what: str) -> None:
         raise PhaseError(what)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
+def kernel_ms(fn, kernel: str, calls: int = 20, warmup: int = 2, mean: bool = False) -> dict:
+    """``ms``: the device time of one launch of ``kernel`` (its CUDA function
+    name), the median (``mean``: the mean) over its launches in ``calls``
+    calls of ``fn``, read from a torch.profiler trace, so the host's cost of
+    making the launches does not enter it; ``call_ms``: CUDA events around
+    back-to-back calls of ``fn`` (time_fn), per call, or per launch of the
+    kernel where a call makes several, which shows the host's cost."""
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling import (
+        kernel_launch_ms,
+        time_fn,
     )
-    return out.stdout.strip().splitlines()[0]
+
+    launches = kernel_launch_ms(fn, calls, warmup).get(kernel, [])
+    if not launches:
+        raise PhaseError(f"{kernel} was not launched under the profiler")
+    ms = sum(launches) / len(launches) if mean else statistics.median(launches)
+    return dict(ms=ms, call_ms=time_fn(fn, iters=calls, warmup=warmup) * calls / len(launches))
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device milliseconds per call of ``fn``, by CUDA events."""
+def same_bits(label: str, a, b) -> float:
+    """Check that a and b are bit-equal (torch.equal); returns their max
+    abs difference."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    err = max_abs(a, b)
+    print(f"{label}: max_abs {err:.3e}, bit-equal {torch.equal(a, b)}", flush=True)
+    check(torch.equal(a, b), f"{label} bit-equal to its plain version")
+    return err
 
 
 def share_outside(a, b, atol: float, rtol: float = 0.0) -> float:
@@ -194,10 +214,13 @@ def bound(nbytes: float, ops: float) -> dict:
 
 def record(name: str, source: str, replaces: str, **fields) -> dict:
     """One kernel's entry of the JSON line; ``fields`` hold max_abs_err, ms,
-    plain_ms and the bound. No single PyTorch call computes any of these
-    functions, so library_ms is null."""
-    return dict(name=name, route="cuda", source=f"{PKG}/csrc/{source}",
-                replaces=f"{TPU_PKG}/{replaces}", library_ms=None, modes=[], **fields)
+    call_ms, plain_ms and the bound. ``replaces`` is a file of the JAX
+    package, or of the repository's ``benchmarks/``. No single PyTorch call
+    computes any of these functions, so library_ms is null."""
+    if not replaces.startswith("benchmarks/"):
+        replaces = f"{TPU_PKG}/{replaces}"
+    return dict(name=name, route="cuda", source=f"{PKG}/csrc/{source}", replaces=replaces,
+                library_ms=None, modes=[], **fields)
 
 
 def trace_tests(pt_mod, td, cam, light, frame_idx, cfg) -> int:
@@ -274,6 +297,7 @@ def kernel_phase(pt, cuda_ops, dev):
     import torch
 
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline import frame
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling import time_fn
 
     geo_mod, pt_mod, at_mod = cuda_ops
     cfg = pt.RenderConfig(width=WIDTH, height=HEIGHT)
@@ -288,38 +312,18 @@ def kernel_phase(pt, cuda_ops, dev):
                 light.color, light.color * 0.5, view, proj, view_p, proj_p, cfg)
     records = []
 
-    # -- geometry --
+    # -- geometry: every plane bit-equal --
     k = geo_mod.geometry_pass(*geo_args)
     p = geo_mod.geometry_pass_plain(*geo_args)
     torch.cuda.synchronize()
-    vis_bad = (k.visibility != p.visibility).double().mean().item()
-    same = (k.visibility == p.visibility)[..., None]
-    planes = {
-        "depth": (k.depth[..., None], p.depth[..., None], 1e-5),
-        "normal": (k.normal, p.normal, 1e-6),
-        "world_pos": (k.world_pos, p.world_pos, 1e-5),
-        "lam": (k.lam[..., None], p.lam[..., None], 2e-4),
-    }
-    err = 0.0
-    for name, (a, b, tol) in planes.items():
-        err = max(err, max_abs(a, b))
-        bad = share_outside(torch.where(same, a, b), b, tol)
-        print(f"geometry {name}: max_abs {max_abs(a, b):.3e}, share > {tol:g} "
-              f"where vis agrees {bad:.3e}")
-        check(bad == 0.0 and torch.isfinite(a).all().item(), f"geometry {name} within {tol:g}")
-    dy = (k.prev_y - p.prev_y).abs()
-    dx = (k.prev_x - p.prev_x).abs()
-    print(f"geometry vis mismatch share {vis_bad:.3e}; prev_y/x off-by-one share "
-          f"{(dy > 0).double().mean().item():.3e} / {(dx > 0).double().mean().item():.3e}")
-    check(vis_bad <= 1e-4, "geometry visibility mismatch share <= 1e-4")
-    check(dy.max().item() <= 1 and dx.max().item() <= 1
-          and (dy > 0).double().mean().item() < 1e-3
-          and (dx > 0).double().mean().item() < 1e-3,
-          "geometry prev_y/x within 1 px on < 0.1% of pixels")
+    check(torch.isfinite(k.depth).all().item() and torch.isfinite(k.lam).all().item(),
+          "geometry planes finite")
+    err = max(same_bits(f"geometry {name}", getattr(k, name).float(), getattr(p, name).float())
+              for name in k._fields if getattr(k, name) is not None)
     records.append(record(
         "geometry", "geometry.cu", "ops/pallas/geometry.py:116", max_abs_err=err,
-        ms=time_ms(lambda: geo_mod.geometry_pass(*geo_args), 20),
-        plain_ms=time_ms(lambda: geo_mod.geometry_pass_plain(*geo_args), 3),
+        **kernel_ms(lambda: geo_mod.geometry_pass(*geo_args), "geometry_kernel"),
+        plain_ms=time_fn(lambda: geo_mod.geometry_pass_plain(*geo_args), iters=3),
         **geometry_bound(cfg, td.num_triangles),
     ))
 
@@ -336,37 +340,36 @@ def kernel_phase(pt, cuda_ops, dev):
     records.append(record(
         "trace", "pathtrace.cu", "ops/pallas/pathtrace.py:1716",
         max_abs_err=max_abs(k_noisy, p_noisy),
-        ms=time_ms(lambda: pt_mod.path_trace_pass(td, cam.position, light, 5, cfg, cam.rotation), 10),
-        plain_ms=time_ms(lambda: pt_mod.path_trace_pass_plain(
-            td, cam.position, light, 5, cfg, rotation=cam.rotation), 2, warmup=1),
+        **kernel_ms(lambda: pt_mod.path_trace_pass(td, cam.position, light, 5, cfg, cam.rotation),
+                    "trace_kernel", 10),
+        plain_ms=time_fn(lambda: pt_mod.path_trace_pass_plain(
+            td, cam.position, light, 5, cfg, rotation=cam.rotation), iters=2, warmup=1),
         lane_eff=trace_lane_eff(pt_mod, td, cam, light, 5, cfg, f"trace parity {w}x{h}"),
         **trace_bound(pt_mod, td, cam, light, 5, cfg),
     ))
     print(f"trace lane efficiency {w}x{h}: {records[-1]['lane_eff']}")
     # the instantiation that counts triangle tests serves the bound only
     tests = torch.zeros((h, w), dtype=torch.int32, device=dev)
-    counting_ms = time_ms(
-        lambda: pt_mod.path_trace_pass(td, cam.position, light, 5, cfg, cam.rotation, tests=tests), 10)
+    counting_ms = kernel_ms(
+        lambda: pt_mod.path_trace_pass(td, cam.position, light, 5, cfg, cam.rotation, tests=tests),
+        "trace_kernel", 10)["ms"]
     print(f"trace {w}x{h}: {records[-1]['ms']:.4f} ms; {counting_ms:.4f} ms with the "
           "triangle-test count compiled in")
 
     # -- a-trous iteration, k = 1..9, seeded HDR color on the real G-buffer --
     rng = np.random.default_rng(SEED)
     color = torch.tensor(rng.exponential(0.5, (h, w, 3)).astype(np.float32), device=dev)
-    err = worst = 0.0
+    err = 0.0
     for step in range(1, cfg.wavelet_iterations + 1):
         a = at_mod.atrous_iteration(color, p.normal, p.depth, step, cfg)
         b = at_mod.atrous_iteration_plain(color, p.normal, p.depth, step, cfg)
         torch.cuda.synchronize()
-        err = max(err, max_abs(a, b))
-        bad = share_outside(a, b, 1e-5, 1e-5)
-        worst = max(worst, bad)
-        check(bad == 0.0, f"atrous_iter k={step} within 1e-5")
-    print(f"atrous_iter k=1..9: max_abs {err:.3e}, share outside 1e-5 {worst:.3e}")
+        err = max(err, same_bits(f"atrous_iter k={step}", a, b))
     records.append(record(
         "atrous_iter", "atrous.cu", "ops/pallas/atrous.py:35", max_abs_err=err,
-        ms=time_ms(lambda: at_mod.atrous_iteration(color, p.normal, p.depth, 5, cfg), 20),
-        plain_ms=time_ms(lambda: at_mod.atrous_iteration_plain(color, p.normal, p.depth, 5, cfg), 3),
+        **kernel_ms(lambda: at_mod.atrous_iteration(color, p.normal, p.depth, 5, cfg),
+                    "atrous_iter_kernel"),
+        plain_ms=time_fn(lambda: at_mod.atrous_iteration_plain(color, p.normal, p.depth, 5, cfg), iters=3),
         **bound(40 * h * w, ATROUS_OPS * h * w),
     ))
 
@@ -375,22 +378,19 @@ def kernel_phase(pt, cuda_ops, dev):
     lam = torch.tensor(rng.uniform(0, 1, (h, w)).astype(np.float32), device=dev)
     py = torch.tensor(rng.integers(0, h, (h, w)).astype(np.int32), device=dev)
     px = torch.tensor(rng.integers(0, w, (h, w)).astype(np.int32), device=dev)
-    err = worst = 0.0
+    err = 0.0
     for adaptive in (False, True):
         c = pt.RenderConfig(width=WIDTH, height=HEIGHT, adaptive_alpha=adaptive)
         for f in (0, 3):
             a = at_mod.temporal_blend(color, prev, py, px, f, lam, c)
             b = at_mod.temporal_blend_plain(color, prev, py, px, f, lam, c)
             torch.cuda.synchronize()
-            err = max(err, max_abs(a, b))
-            bad = share_outside(a, b, 1e-6, 1e-6)
-            worst = max(worst, bad)
-            check(bad == 0.0, f"temporal_blend adaptive={adaptive} frame={f} within 1e-6")
-    print(f"temporal_blend: max_abs {err:.3e}, share outside 1e-6 {worst:.3e}")
+            err = max(err, same_bits(f"temporal_blend adaptive={adaptive} frame={f}", a, b))
     records.append(record(
         "temporal_blend", "atrous.cu", "ops/pallas/atrous.py:278", max_abs_err=err,
-        ms=time_ms(lambda: at_mod.temporal_blend(color, prev, py, px, 3, lam, cfg), 20),
-        plain_ms=time_ms(lambda: at_mod.temporal_blend_plain(color, prev, py, px, 3, lam, cfg), 5),
+        **kernel_ms(lambda: at_mod.temporal_blend(color, prev, py, px, 3, lam, cfg),
+                    "temporal_blend_kernel"),
+        plain_ms=time_fn(lambda: at_mod.temporal_blend_plain(color, prev, py, px, 3, lam, cfg), iters=5),
         **bound(48 * h * w, BLEND_OPS * h * w),
     ))
     return records
@@ -405,6 +405,7 @@ def svgf_kernel_phase(pt, cuda_ops, dev, records) -> None:
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import atrous
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline import frame
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling import time_fn
 
     geo_mod, pt_mod, at_mod = cuda_ops
     by_name = {r["name"]: r for r in records}
@@ -423,17 +424,15 @@ def svgf_kernel_phase(pt, cuda_ops, dev, records) -> None:
     k = geo_mod.geometry_pass(*geo_args, emit_albedo=True)
     p = geo_mod.geometry_pass_plain(*geo_args, emit_albedo=True)
     torch.cuda.synchronize()
-    same = (k.visibility == p.visibility)[..., None]
-    err = max_abs(torch.where(same, k.albedo, p.albedo), p.albedo)
-    print(f"geometry albedo {w}x{h}: max_abs where vis agrees {err:.3e}")
-    check(torch.equal(torch.where(same, k.albedo, p.albedo), p.albedo),
-          "geometry albedo planes bit-equal where visibility agrees")
+    errs = {name: same_bits(f"geometry {name} {w}x{h} emit_albedo", getattr(k, name).float(),
+                            getattr(p, name).float()) for name in k._fields}
     geo_rec = by_name["geometry"]
     for label, albedo in ((f"{w}x{h} (presets)", False), (f"{w}x{h} emit_albedo", True)):
         geo_rec["modes"].append(dict(
-            mode=label, max_abs_err=err if albedo else 0.0,
-            ms=time_ms(lambda: geo_mod.geometry_pass(*geo_args, emit_albedo=albedo), 20),
-            plain_ms=time_ms(lambda: geo_mod.geometry_pass_plain(*geo_args, emit_albedo=albedo), 2),
+            mode=label, max_abs_err=max(v for f, v in errs.items() if albedo or f != "albedo"),
+            **kernel_ms(lambda: geo_mod.geometry_pass(*geo_args, emit_albedo=albedo),
+                        "geometry_kernel"),
+            plain_ms=time_fn(lambda: geo_mod.geometry_pass_plain(*geo_args, emit_albedo=albedo), iters=2),
             **geometry_bound(cfg, td.num_triangles, albedo)))
 
     # -- variance-guided a-trous, k = 1..9, seeded color/var on the real G-buffer --
@@ -445,15 +444,14 @@ def svgf_kernel_phase(pt, cuda_ops, dev, records) -> None:
         ac, av = at_mod.atrous_iteration_var(color, var, p.normal, p.depth, step, cfg)
         bc, bv = at_mod.atrous_iteration_var_plain(color, var, p.normal, p.depth, step, cfg)
         torch.cuda.synchronize()
-        err = max(err, max_abs(ac, bc), max_abs(av, bv))
-        check(share_outside(ac, bc, 1e-5, 1e-5) == 0.0 and share_outside(av, bv, 1e-5, 1e-5) == 0.0,
-              f"atrous_iter_var k={step} color and var within 1e-5")
-    print(f"atrous_iter_var k=1..9 {w}x{h}: max_abs {err:.3e}")
+        err = max(err, same_bits(f"atrous_iter_var k={step} color", ac, bc),
+                  same_bits(f"atrous_iter_var k={step} var", av, bv))
     records.append(record(
         "atrous_iter_var", "atrous.cu", "ops/pallas/atrous.py:104", max_abs_err=err,
-        ms=time_ms(lambda: at_mod.atrous_iteration_var(color, var, p.normal, p.depth, 5, cfg), 20),
-        plain_ms=time_ms(
-            lambda: at_mod.atrous_iteration_var_plain(color, var, p.normal, p.depth, 5, cfg), 3),
+        **kernel_ms(lambda: at_mod.atrous_iteration_var(color, var, p.normal, p.depth, 5, cfg),
+                    "atrous_iter_var_kernel"),
+        plain_ms=time_fn(
+            lambda: at_mod.atrous_iteration_var_plain(color, var, p.normal, p.depth, 5, cfg), iters=3),
         **bound(48 * h * w, ATROUS_VAR_OPS * h * w),
     ))
 
@@ -478,17 +476,15 @@ def svgf_kernel_phase(pt, cuda_ops, dev, records) -> None:
                 a_rgb, a_age = at_mod.temporal_blend_ramp(*args)
                 b_rgb, b_age = at_mod.temporal_blend_ramp_plain(*args)
                 torch.cuda.synchronize()
-                err = max(err, max_abs(a_rgb, b_rgb))
-                check(torch.equal(a_age, b_age) and share_outside(a_rgb, b_rgb, 1e-6, 1e-6) == 0.0,
-                      f"temporal_blend_ramp mode={mode} adaptive={adaptive} frame={f}: "
-                      "age bit-equal, rgb within 1e-6")
-    print(f"temporal_blend_ramp {w}x{h}: max_abs {err:.3e}")
+                label = f"temporal_blend_ramp mode={mode} adaptive={adaptive} frame={f}"
+                err = max(err, same_bits(f"{label} rgb", a_rgb, b_rgb),
+                          same_bits(f"{label} age", a_age, b_age))
     ramp_args = (color, prev, py, px, 3, lam, prev_age, *cons["id"], cfg)
     records.append(record(
         "temporal_blend_ramp", "atrous.cu", "ops/pallas/atrous.py:278 (ramp=True)",
         max_abs_err=err,
-        ms=time_ms(lambda: at_mod.temporal_blend_ramp(*ramp_args), 20),
-        plain_ms=time_ms(lambda: at_mod.temporal_blend_ramp_plain(*ramp_args), 5),
+        **kernel_ms(lambda: at_mod.temporal_blend_ramp(*ramp_args), "temporal_blend_ramp_kernel"),
+        plain_ms=time_fn(lambda: at_mod.temporal_blend_ramp_plain(*ramp_args), iters=5),
         **bound(64 * h * w, RAMP_BLEND_OPS * h * w),
     ))
 
@@ -518,10 +514,10 @@ def svgf_kernel_phase(pt, cuda_ops, dev, records) -> None:
         trace_rec["max_abs_err"] = max(trace_rec["max_abs_err"], err)
         trace_rec["modes"].append(dict(
             mode=f"{label}, {w}x{h}", max_abs_err=err,
-            ms=time_ms(lambda: pt_mod.path_trace_pass(td, cam.position, light, 5, c, cam.rotation),
-                       5, warmup=1),
-            plain_ms=time_ms(lambda: pt_mod.path_trace_pass_plain(
-                td, cam.position, light, 5, c, rotation=cam.rotation), 1, warmup=0),
+            **kernel_ms(lambda: pt_mod.path_trace_pass(td, cam.position, light, 5, c, cam.rotation),
+                        "trace_kernel", 5, warmup=1),
+            plain_ms=time_fn(lambda: pt_mod.path_trace_pass_plain(
+                td, cam.position, light, 5, c, rotation=cam.rotation), iters=1, warmup=0),
             lane_eff=trace_lane_eff(pt_mod, td, cam, light, 5, c, f"trace {label} {w}x{h}"),
             **trace_bound(pt_mod, td, cam, light, 5, c)))
         print(f"trace {label} lane efficiency: {trace_rec['modes'][-1]['lane_eff']}")
@@ -641,18 +637,19 @@ def timing_phase(pt, dev, card: str) -> None:
     """ms/frame of both routes after warm-up, static camera: the default
     config at both sizes, then both presets at 1920x1080."""
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling import time_fn
 
     scene = pt.Scene.cornell_box()
     for w, h in ((WIDTH, HEIGHT), BENCH_SIZE):
         for backend, reps in (("auto", 20), ("xla", 3)):
             r = pt.Renderer(scene, pt.RenderConfig(width=w, height=h, backend=backend), device=dev)
-            ms = time_ms(r.step, reps, warmup=3)
+            ms = time_fn(r.step, iters=reps, warmup=3)
             route = "kernels" if backend == "auto" else "plain"
             print(f"ms/frame {w}x{h} {route}: {ms:.3f} ({card})")
     for name in PRESETS:
         for backend, reps, warmup in (("auto", 20, 3), ("xla", 2, 1)):
             r = getattr(presets, name)(device=dev, backend=backend)
-            ms = time_ms(r.step, reps, warmup=warmup)
+            ms = time_fn(r.step, iters=reps, warmup=warmup)
             route = "kernels" if backend == "auto" else "plain"
             print(f"ms/frame {name} {r.cfg.width}x{r.cfg.height} {route}: {ms:.3f} ({card})")
 
@@ -660,19 +657,6 @@ def timing_phase(pt, dev, card: str) -> None:
 def orbit(pt, i: int, dev):
     """The JAX package's suite camera at frame i (benchmarks/suite.py)."""
     return pt.Camera.orbit([0.0, 1.0, 0.0], 6.0, 0.01 * i, 1.0, device=dev)
-
-
-def close_share(label: str, a, b, tol: float) -> float:
-    """Check that a and b agree within tol (abs and rel) on all but 1e-4 of
-    their elements; returns the max abs difference."""
-    import torch
-
-    err, bad = max_abs(a, b), share_outside(a, b, tol, tol)
-    print(f"{label}: max_abs {err:.3e}, share outside {tol:g} {bad:.3e}, "
-          f"bit-equal {torch.equal(a, b)}", flush=True)
-    check(bool(torch.isfinite(a.double()).all().item()) and bad <= 1e-4,
-          f"{label} within {tol:g} on >= 99.99% of elements")
-    return err
 
 
 def walk_bound(counts, nbytes: float, per_tri: int = 0) -> dict:
@@ -845,7 +829,9 @@ def segment_record_fields(wf, td, cfg, cam, light, frame_idx) -> dict:
     state_bytes = 56 * n + sum(108 * k + 4 * n for k in live[1:])
     fields = walk_bound(counts, state_bytes + 72 * segs, per_tri=60)
     fields["bound_ms"] /= segs
-    ms = time_ms(lambda: frame_segments(wf, td, cfg, cam, light, frame_idx), 3, warmup=1) / segs
+    timing = kernel_ms(lambda: frame_segments(wf, td, cfg, cam, light, frame_idx),
+                       "trace_segment_kernel", 3, warmup=1, mean=True)
+    ms = timing["ms"]
 
     def run(counts, lanes, after):
         frame_segments(wf, td, cfg, cam, light, frame_idx, counts, lanes=lanes, after=after)
@@ -855,7 +841,7 @@ def segment_record_fields(wf, td, cfg, cam, light, frame_idx) -> dict:
         td, run, f"trace_segment {cfg.width}x{cfg.height} {td.num_triangles} tris")
     print(f"trace_segment {cfg.width}x{cfg.height} {td.num_triangles} tris: {ms:.4f} ms per "
           f"launch; live rays {live}; lane efficiency {lane_eff}", flush=True)
-    return dict(ms=ms, live_rays=live, lane_eff=lane_eff, **fields)
+    return dict(timing, live_rays=live, lane_eff=lane_eff, **fields)
 
 
 def large_kernel_phase(pt, dev, records) -> None:
@@ -888,15 +874,16 @@ def large_kernel_phase(pt, dev, records) -> None:
     path_a = dataclasses.replace(base, **LARGE["A"][1])
 
     def geometry_agrees(args, label):
-        """geometry_bvh against its plain version on every plane; returns
-        (max abs error, plain ms)."""
+        """geometry_bvh against its plain version on every plane, bit for
+        bit; returns (max abs error, plain ms)."""
         k = geo_mod.geometry_pass_bvh(*args, emit_albedo=True)
         t0 = time.perf_counter()
         p = geo_mod.geometry_pass_plain(*args, emit_albedo=True)
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - t0)
-        err = max(close_share(f"geometry_bvh {name} {label}", getattr(k, name).float(),
-                              getattr(p, name).float(), 1e-5) for name in k._fields)
+        check(bool(torch.isfinite(k.depth).all().item()), f"geometry_bvh {label} depth finite")
+        err = max(same_bits(f"geometry_bvh {name} {label}", getattr(k, name).float(),
+                            getattr(p, name).float()) for name in k._fields)
         return err, plain_ms
 
     # -- LBVH geometry kernel: plain version at path A's and path B's
@@ -905,7 +892,8 @@ def large_kernel_phase(pt, dev, records) -> None:
     args = stress_geo_args(pt, td, path_a, dev)
     err, plain_ms = geometry_agrees(args, f"32768 tris {w}x{h}")
     rec = record("geometry_bvh", "geometry.cu", "ops/pallas/geometry.py:388", max_abs_err=err,
-                 ms=time_ms(lambda: geo_mod.geometry_pass_bvh(*args), 20), plain_ms=plain_ms,
+                 **kernel_ms(lambda: geo_mod.geometry_pass_bvh(*args), "geometry_bvh_kernel"),
+                 plain_ms=plain_ms,
                  **geometry_bvh_bound(geo_mod, args, td, path_a))
     records.append(rec)
     td88 = scenes[88]
@@ -914,7 +902,7 @@ def large_kernel_phase(pt, dev, records) -> None:
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
     rec["modes"].append(dict(
         mode=f"247808 triangles (path B), {w}x{h}", max_abs_err=err, plain_ms=plain_ms,
-        ms=time_ms(lambda: geo_mod.geometry_pass_bvh(*args88), 20),
+        **kernel_ms(lambda: geo_mod.geometry_pass_bvh(*args88), "geometry_bvh_kernel"),
         **geometry_bvh_bound(geo_mod, args88, td88, base)))
     for t, tds in small_scenes.items():
         args_s = stress_geo_args(pt, tds, base, dev)
@@ -923,8 +911,9 @@ def large_kernel_phase(pt, dev, records) -> None:
         torch.cuda.synchronize()
         same = all(torch.equal(getattr(dense, f), getattr(bvh, f)) for f in dense._fields)
         mode = dict(mode=f"{t} triangles, {w}x{h}, against the dense kernel", max_abs_err=0.0,
-                    ms=time_ms(lambda: geo_mod.geometry_pass_bvh(*args_s), 20),
-                    dense_kernel_ms=time_ms(lambda: geo_mod.geometry_pass(*args_s), 20))
+                    **kernel_ms(lambda: geo_mod.geometry_pass_bvh(*args_s), "geometry_bvh_kernel"),
+                    dense_kernel_ms=kernel_ms(lambda: geo_mod.geometry_pass(*args_s),
+                                              "geometry_kernel")["ms"])
         print(f"geometry_bvh vs dense geometry kernel, {t} tris {w}x{h}: bit-equal {same}; "
               f"{mode['ms']:.4f} ms LBVH, {mode['dense_kernel_ms']:.4f} ms dense")
         check(same, f"geometry_bvh equals the dense geometry kernel bit for bit on {t} triangles")
@@ -964,16 +953,21 @@ def large_kernel_phase(pt, dev, records) -> None:
             a = pt_mod.path_trace_pass(tds, cam.position, light, 5, c, cam.rotation)
             b = wf.path_trace_wavefront(tds, cam.position, light, 5, c, cam.rotation)
             torch.cuda.synchronize()
+            launches = c.max_bounces * c.spp * c.sample_batches
+            segments = kernel_ms(lambda: wf.path_trace_wavefront(tds, cam.position, light, 5, c,
+                                                                cam.rotation),
+                                 "trace_segment_kernel", 3, warmup=1, mean=True)
             mode = dict(
                 mode=f"{t} triangles, {label}, {w}x{h}, against the dense trace kernel",
-                max_abs_err=0.0, launches=c.max_bounces * c.spp * c.sample_batches,
-                frame_ms=time_ms(lambda: wf.path_trace_wavefront(tds, cam.position, light, 5, c,
-                                                                cam.rotation), 3, warmup=1),
-                dense_kernel_ms=time_ms(lambda: pt_mod.path_trace_pass(
-                    tds, cam.position, light, 5, c, cam.rotation), 3, warmup=1))
+                max_abs_err=0.0, launches=launches, segments_ms=segments["ms"] * launches,
+                frame_ms=segments["call_ms"] * launches,
+                dense_kernel_ms=kernel_ms(lambda: pt_mod.path_trace_pass(
+                    tds, cam.position, light, 5, c, cam.rotation), "trace_kernel", 3,
+                    warmup=1)["ms"])
             print(f"segment tracer vs trace kernel, {t} tris {label} {w}x{h}: bit-equal "
-                  f"{torch.equal(a, b)}, max_abs {max_abs(a, b):.3e}; {mode['frame_ms']:.3f} ms "
-                  f"segments, {mode['dense_kernel_ms']:.3f} ms dense")
+                  f"{torch.equal(a, b)}, max_abs {max_abs(a, b):.3e}; segments "
+                  f"{mode['segments_ms']:.3f} device ms ({mode['frame_ms']:.3f} ms a call), "
+                  f"{mode['dense_kernel_ms']:.3f} ms dense")
             check(torch.equal(a, b), f"segment tracer equals the trace kernel on {t} triangles "
                                      f"({label})")
             rec["modes"].append(mode)
@@ -999,17 +993,17 @@ def large_kernel_phase(pt, dev, records) -> None:
     p = wf.shadow_segment_plain(o, w_l, cap, mask, td, path_c)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    bad = (k != p).double().mean().item()
     print(f"shadow_segment path C {w}x{h}: {int(mask.sum().item())} sampling lanes, "
-          f"{int(p.sum().item())} occluded, mismatch share {bad:.3e}, bit-equal {torch.equal(k, p)}")
-    check(bad <= 1e-4, "shadow_segment matches its plain version on >= 99.99% of lanes")
+          f"{int(p.sum().item())} occluded")
+    same_bits(f"shadow_segment path C {w}x{h}", k, p)
     counts = geo_mod.WalkCounts.zeros(n, td)
     wf.shadow_segment(o, w_l, cap, mask, td, path_c, counts=counts)
     # per lane: origin, direction and cap (28 B) and the mask read, the flag written
     records.append(record(
         "shadow_segment", "wavefront.cu", "ops/pallas/wavefront.py:487",
         max_abs_err=float((k != p).any().item()),
-        ms=time_ms(lambda: wf.shadow_segment(o, w_l, cap, mask, td, path_c), 20),
+        **kernel_ms(lambda: wf.shadow_segment(o, w_l, cap, mask, td, path_c),
+                    "shadow_segment_kernel"),
         plain_ms=plain_ms, **walk_bound(counts, 36 * n)))
     print(f"large-scene kernel phase: {time.time() - t_phase:.1f} s", flush=True)
 
@@ -1094,16 +1088,11 @@ def explicit_pixel_mode(wf, td, cfg, cam, light, frame_idx, pixels, primary, lab
     state_bytes = (64 * n if start == 0 else 0) + sum(108 * k + 4 * n for k in later)
     fields = walk_bound(counts, state_bytes + 72 * launches, per_tri=60)
     fields["bound_ms"] /= launches
-    events = []
-    for _ in range(4):
-        r = fresh()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        pixel_segments(wf, td, cfg, cam, light, frame_idx, pixels, r, start)
-        b.record()
-        events.append((a, b))
-    torch.cuda.synchronize()
-    ms = sum(a.elapsed_time(b) for a, b in events[1:]) / (len(events) - 1) / launches
+    # each run from a fresh copy of the input rays (call_ms includes the copy)
+    timing = kernel_ms(lambda: pixel_segments(wf, td, cfg, cam, light, frame_idx, pixels,
+                                              fresh(), start),
+                       "trace_segment_kernel", 3, warmup=1, mean=True)
+    ms = timing["ms"]
 
     def run(counts, lanes, after):
         pixel_segments(wf, td, cfg, cam, light, frame_idx, pixels, fresh(), start, counts,
@@ -1113,7 +1102,7 @@ def explicit_pixel_mode(wf, td, cfg, cam, light, frame_idx, pixels, primary, lab
     lane_eff = segment_lane_eff(td, run, f"trace_segment explicit pixels {label}")
     print(f"trace_segment explicit pixels {label}: {ms:.4f} ms per launch; lane efficiency "
           f"{lane_eff}", flush=True)
-    return dict(mode=f"{label}, per launch", max_abs_err=err, ms=ms,
+    return dict(mode=f"{label}, per launch", max_abs_err=err, **timing,
                 plain_ms=1e3 * plain_s / launches, rays=n, live_rays=live, lane_eff=lane_eff,
                 on_path=path, **fields)
 
@@ -1169,7 +1158,9 @@ def visibility_mode(pt, geo_mod, td, cfg, cam, dev, label: str) -> dict:
         fields = bound(20 * n + 224 + 168 * t, TRI_TEST_OPS * t * n)
     return dict(mode=f"visibility-only ({label}), {cfg.width}x{cfg.height}", max_abs_err=err,
                 launches_by_path={"visibility_pass": launches.get(name, 0)},
-                ms=time_ms(lambda: geo_mod.visibility_pass(*args), 20), plain_ms=plain_ms,
+                **kernel_ms(lambda: geo_mod.visibility_pass(*args),
+                            "geometry_bvh_kernel" if bvh else "geometry_kernel"),
+                plain_ms=plain_ms,
                 **fields)
 
 
@@ -1305,6 +1296,7 @@ def large_timing_phase(pt, dev, card: str) -> None:
     import torch
 
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import LAUNCHES
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling import time_fn
 
     t_phase = time.time()
     w, h = BENCH_SIZE
@@ -1329,11 +1321,153 @@ def large_timing_phase(pt, dev, card: str) -> None:
         r = path_renderer(pt, dev, path, backend, size)
         if path != "E":
             r.camera = orbit(pt, 0, dev)
-        ms = time_ms(r.step, reps, warmup=warmup)
+        ms = time_fn(r.step, iters=reps, warmup=warmup)
         route = "kernels" if backend == "auto" else "plain"
         print(f"ms/frame path {path} ({r.tri_data.num_triangles} tris) {size[0]}x{size[1]} "
               f"{route}: {ms:.3f} ({card})")
     print(f"large-scene timing phase: {time.time() - t_phase:.1f} s", flush=True)
+
+
+# The micro-kernels: each kernel's pallas_call line in the JAX package's
+# benchmarks/mosaic_micro.py, and the operations one iteration of each
+# primitive does, counted from those kernels' bodies (integer and float
+# operations alike, at the float32 rate): scalar 6 (and, mul, add, and,
+# shift, xor); dynrow a 128-wide add and 3; assemble 8 x 128 adds and 18;
+# vec 10 an element (two fused multiply-adds count 2 each, 3 products, an
+# add, a max and a min); when 5; reduce 4096 adds, 4095 max, a fused
+# multiply-add and 2; dynwin 1024 products and 5; cond 5.
+MICRO_SITES = {"scalar": 98, "dynrow": 128, "assemble": 159, "vec": 189, "when": 222,
+               "reduce": 250, "dynwin": 280, "cond": 305}
+MICRO_OPS = {"scalar": 6, "dynrow": 131, "assemble": 1042, "when": 5, "reduce": 8195,
+             "dynwin": 1029, "cond": 5}
+MICRO_ITERS = 200_000  # the JAX benchmark's --iters
+MICRO_CHECK_ITERS = (64, 1000)
+MICRO_PLAIN_ITERS = (64, 256)  # the plain twins' slope on the card
+# Primitives whose timed launch at the lower JAX count is also held against
+# the plain twin (0.4-4 s of the twin on the card). The vec twins take 16-23 s
+# there and are held against the kernel at MICRO_CHECK_ITERS only.
+MICRO_TWIN_AT_JAX_COUNT = ("scalar", "dynrow", "assemble", "when", "reduce", "dynwin", "cond")
+
+
+def micro_agrees(micro, name: str, x, got: dict, iters: int, what: str) -> None:
+    """Check a micro-kernel's result ``got`` at ``iters`` iterations: the
+    output equals ``x``, and the output and every carry are bit-equal to
+    the plain twin's."""
+    import torch
+
+    want = micro.run_plain(name, x, iters)
+    torch.cuda.synchronize()
+    check(sorted(got) == sorted(want) and torch.equal(got["out"], x)
+          and all(torch.equal(got[c], want[c]) for c in want),
+          f"micro {name} at {iters} iterations{what}: out equals x, out and carries "
+          f"{sorted(set(want) - {'out'})} bit-equal to the plain twin")
+
+
+def micro_phase(dev) -> tuple:
+    """The micro-kernels: each primitive against its plain twin at two
+    iteration counts (``torch.equal`` on the output and every carry), then
+    the micro-benchmark (benchmarks/mosaic_micro.py) at the JAX counts, its
+    launches counted, and the last timed launch at each count checked
+    (MICRO_TWIN_AT_JAX_COUNT against the twin at the lower count). Returns
+    the records (ms per iteration by slope) and the path's launch counts."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.benchmarks import (
+        mosaic_micro,
+    )
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import (
+        LAUNCHES,
+        micro,
+    )
+
+    t_phase = time.time()
+    x = micro.make_input(dev)
+    for name in micro.PRIMITIVES:
+        for iters in MICRO_CHECK_ITERS:
+            micro_agrees(micro, name, x, micro.run(name, x, iters), iters, "")
+    LAUNCHES.clear()
+    slopes = {name: mosaic_micro.run_pair(name, x, *mosaic_micro.counts(name, MICRO_ITERS))
+              for name in micro.PRIMITIVES}
+    counts = dict(LAUNCHES)
+    for name, r in slopes.items():
+        # the last timed launch at each JAX count
+        for hi_lo in ("hi", "lo"):
+            got, iters = r[f"{hi_lo}_result"], r[f"iters_{hi_lo}"]
+            check(torch.equal(got["out"], x)
+                  and all(bool(torch.isfinite(v.float()).all()) for v in got.values()),
+                  f"micro {name} timed at {iters} iterations: out equals x, carries finite")
+        if name in MICRO_TWIN_AT_JAX_COUNT:
+            micro_agrees(micro, name, x, r["lo_result"], r["iters_lo"], " (timed)")
+    by_kernel: dict = {}
+    for name, r in slopes.items():
+        prim = micro.PRIMITIVES[name]
+        plain = mosaic_micro.run_pair(name, x, *reversed(MICRO_PLAIN_ITERS), reps=3, plain=True)
+        elems = prim.shape[0] * prim.shape[1] if prim.shape else 0
+        ops = MICRO_OPS.get(prim.kernel, 10 * elems)
+        # per launch: x read and out written (16 KB each) and the carries
+        # written (the side tables: when 1 KB, dynwin 32 KB, the accumulators)
+        side = {"when": 1028, "dynwin": 32772, "dynrow": 516, "assemble": 4100,
+                "reduce": 8}.get(prim.kernel, 8 + 4 * elems)
+        per_iter = bound(32768 + side, ops * r["iters_hi"])
+        mode = dict(mode=name, ns_per_iter=r["ns_per_iter"], plain_ns_per_iter=plain["ns_per_iter"],
+                    iters=(r["iters_hi"], r["iters_lo"]), launch_ms=(r["hi_ms"], r["lo_ms"]),
+                    ms=r["ns_per_iter"] * 1e-6, plain_ms=plain["ns_per_iter"] * 1e-6,
+                    bound_ms=per_iter["bound_ms"] / r["iters_hi"], bound_by=per_iter["bound_by"])
+        print(f"micro {name}: {r['ns_per_iter']:.3f} ns/iteration (launches {r['hi_ms']:.4f} ms "
+              f"at {r['iters_hi']}, {r['lo_ms']:.4f} ms at {r['iters_lo']}); plain twin "
+              f"{plain['ns_per_iter']:.1f} ns/iteration", flush=True)
+        by_kernel.setdefault(prim.kernel, []).append(mode)
+    records = []
+    for kernel, modes in by_kernel.items():
+        first = modes[0]
+        records.append(record(
+            f"micro_{kernel}", "micro.cu", f"benchmarks/mosaic_micro.py:{MICRO_SITES[kernel]}",
+            max_abs_err=0.0, ms_is="per loop iteration: the slope between two iteration counts",
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "ns_per_iter",
+                                     "plain_ns_per_iter", "iters", "launch_ms")},
+            note="a latency probe (one thread or one block): nowhere near the card's bound"))
+        if len(modes) > 1:
+            records[-1]["modes"] = modes
+    print(f"micro-kernel phase: {time.time() - t_phase:.1f} s; launches {counts}", flush=True)
+    return records, counts
+
+
+def suite_phase(dev) -> dict:
+    """The measurement entry points: bench_torch.run_bench at 1920x1080 for
+    a few frames, and the port's benchmark suite in --quick mode with
+    device time; prints their JSON lines. Returns the launch counts of
+    each, by path."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.benchmarks import suite
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import LAUNCHES
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.device import (
+        device_name,
+    )
+
+    import bench_torch
+
+    t_phase = time.time()
+    w, h = BENCH_SIZE
+    LAUNCHES.clear()
+    ms, name = bench_torch.run_bench(w, h, frames=5, warmup=3, device=dev)
+    paths = {"bench_torch": dict(LAUNCHES)}
+    line = bench_torch.result_line(w, h, ms, name)
+    print(json.dumps(line), flush=True)
+    check(line["value"] > 0 and np.isfinite(line["value"]), "bench_torch: finite ms/frame")
+    LAUNCHES.clear()
+    rows = suite.run_suite(quick=True, device=dev, device_time=True)
+    paths["suite --quick"] = dict(LAUNCHES)
+    card = device_name(dev)
+    for row, result in rows:
+        print(json.dumps(suite.row_line(row, result, card)), flush=True)
+    want = [n for n, _ in suite.suite_entries(True, device=dev)]
+    check([n for n, _ in rows] == want and all(
+        np.isfinite(r["ms"]) and r["device_ms"] > 0 and r["launches"] > 0 for _, r in rows),
+        f"suite --quick --device-time: {len(want)} rows, finite ms, device ms and launches")
+    torch.cuda.synchronize()
+    print(f"suite phase: {time.time() - t_phase:.1f} s; launches {paths}", flush=True)
+    return paths
 
 
 def main() -> int:
@@ -1349,6 +1483,9 @@ def main() -> int:
             atrous as at_mod,
             geometry as geo_mod,
             pathtrace as pt_mod,
+        )
+        from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.device import (
+            card_line,
         )
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
@@ -1379,13 +1516,17 @@ def main() -> int:
             paths[name] = preset_sequence_phase(pt, dev, name)
         for path in (*LARGE, *GRADIENT_PATHS):
             paths[path] = large_sequence_phase(pt, dev, path)
+        micro_records, paths["mosaic_micro"] = micro_phase(dev)
+        records += micro_records
+        paths.update(suite_phase(dev))
         timing_phase(pt, dev, card)
         large_timing_phase(pt, dev, card)
     except (PhaseError, RuntimeError, ValueError, subprocess.SubprocessError) as exc:
         print(f"chip_smoke: failed: {exc}", file=sys.stderr)
         return 1
     for r in records:
-        r["launches_by_path"] = {path: counts.get(r["name"], 0) for path, counts in paths.items()}
+        r["launches_by_path"] = {path: counts.get(r["name"], 0) for path, counts in paths.items()
+                                 if not r["name"].startswith("micro_") or path == "mosaic_micro"}
         r["launches"] = sum(r["launches_by_path"].values())
         for mode in r["modes"]:
             if "on_path" in mode:  # a mode that is all of the kernel's launches on that path
@@ -1395,7 +1536,9 @@ def main() -> int:
         print("chip_smoke: failed: a kernel was not launched on any main path", file=sys.stderr)
         return 1
     order = ["name", "route", "source", "replaces", "launches", "launches_by_path",
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "modes"]
+             "max_abs_err", "ms", "ms_is", "call_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "modes", "ns_per_iter", "plain_ns_per_iter", "iters", "launch_ms",
+             "note"]
     order += ["tri_tests", "box_tests", "node_rows_read", "tri_rows_read", "committed_tris",
               "live_rays", "lane_eff"]
     print(json.dumps({"modelled_not_measured_lane_eff_of_earlier_designs": MODELLED}))

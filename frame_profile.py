@@ -12,7 +12,8 @@ clock (the last one synchronised), then profiles 20 more with
 ``torch.profiler`` and reads the device's kernels from the exported trace.
 Prints one line per configuration with ms/frame (host clock, unprofiled and
 profiled), the device's busy time per frame (the union of its kernel
-intervals), its idle share, each kernel's device ms and launches per
+intervals) and kernel launches per frame (``utils/profiling.device_time``),
+its idle share, each kernel's device ms and launches per
 frame, and, for a kernel launched several times a frame, its mean device us
 at each position in the frame. The static camera and light leave every frame's work the same.
 The plain PyTorch parts of the path gradient and the multi-res split
@@ -43,9 +44,16 @@ import collections
 import contextlib
 import json
 import os
-import subprocess
 import sys
 import time
+
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.device import card_line
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling import (
+    device_time,
+    kernel_events,
+    kernel_name,
+    read_events,
+)
 
 FRAMES = 20
 WARMUP = 5
@@ -82,20 +90,6 @@ def _renderer(pt, name: str):
     return getattr(presets, f"cornell_box_{name}")()
 
 
-def _events(trace_path: str):
-    with open(trace_path) as f:
-        return json.load(f)["traceEvents"]
-
-
-def _kernels(events):
-    return [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
-
-
-def _kernel_name(e) -> str:
-    key = e["name"].replace("(anonymous namespace)::", "").replace("void ", "")
-    return key.split("(")[0].split("<")[0].split("::")[-1]
-
-
 def _range_kernels(events, label: str):
     """The kernels launched from the host inside the profiler ranges named
     ``label``: the launch call (matched to its kernel by correlation id)
@@ -105,7 +99,7 @@ def _range_kernels(events, label: str):
     launched = {e["args"]["correlation"] for e in events
                 if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})
                 and any(a <= e["ts"] <= b for a, b in spans)}
-    return [e for e in _kernels(events) if e.get("args", {}).get("correlation") in launched]
+    return [e for e in kernel_events(events) if e.get("args", {}).get("correlation") in launched]
 
 
 @contextlib.contextmanager
@@ -133,17 +127,6 @@ def _annotated_ranges():
             setattr(mod, fn_name, fn)
 
 
-def _busy_us(kernels) -> float:
-    """Length of the union of the kernel intervals."""
-    busy, end = 0.0, float("-inf")
-    for e in sorted(kernels, key=lambda e: e["ts"]):
-        start, stop = e["ts"], e["ts"] + e["dur"]
-        if stop > end:
-            busy += stop - max(start, end)
-            end = stop
-    return busy
-
-
 def profile(pt, name: str, out: str) -> dict:
     import torch
 
@@ -166,9 +149,10 @@ def profile(pt, name: str, out: str) -> dict:
         prof_ms = 1e3 * (time.perf_counter() - t0) / FRAMES
     path = os.path.join(out, f"frame_profile_{name}.json")
     prof.export_chrome_trace(path)
-    events = _events(path)
-    kernels = _kernels(events)
-    busy_ms = _busy_us(kernels) / 1e3 / FRAMES
+    events = read_events(path)
+    kernels = kernel_events(events)
+    busy = device_time(kernels, FRAMES)
+    busy_ms = busy["device_ms"]
     ranges = {}
     for _, label in RANGES:
         inside = _range_kernels(events, label)
@@ -179,7 +163,8 @@ def profile(pt, name: str, out: str) -> dict:
     return dict(
         config=name, width=r.cfg.width, height=r.cfg.height, frames=FRAMES,
         ms_per_frame=wall_ms, ms_per_frame_profiled=prof_ms, device_busy_ms=busy_ms,
-        idle_share=1.0 - busy_ms / prof_ms, kernels=_per_kernel(kernels)["kernels"],
+        launches_per_frame=busy["launches"], idle_share=1.0 - busy_ms / prof_ms,
+        kernels=_per_kernel(kernels)["kernels"],
         us_by_launch=_by_launch(kernels), plain_ranges=ranges,
     )
 
@@ -189,7 +174,7 @@ def _by_launch(kernels) -> dict:
     at each position in the frame (the segment tracer's segments in order)."""
     per_name = collections.defaultdict(list)
     for e in sorted(kernels, key=lambda e: e["ts"]):
-        per_name[_kernel_name(e)].append(e["dur"])
+        per_name[kernel_name(e)].append(e["dur"])
     out = {}
     for name, durs in per_name.items():
         per = len(durs) // FRAMES
@@ -203,8 +188,8 @@ def _per_kernel(kernels) -> dict:
     """Device ms and launches per frame of each kernel name, largest first."""
     per_name = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:
-        per_name[_kernel_name(e)][0] += e["dur"] / 1e3 / FRAMES
-        per_name[_kernel_name(e)][1] += 1
+        per_name[kernel_name(e)][0] += e["dur"] / 1e3 / FRAMES
+        per_name[kernel_name(e)][1] += 1
     return dict(kernels={k: dict(ms=v[0], launches_per_frame=v[1] / FRAMES)
                          for k, v in sorted(per_name.items(), key=lambda kv: -kv[1][0])})
 
@@ -224,10 +209,7 @@ def main() -> int:
     import real_time_path_tracing_with_spatiotemporal_filtering_torch as pt
 
     os.makedirs(args.out, exist_ok=True)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card)
     for name in args.configs.split(","):
         print(json.dumps(dict(profile(pt, name, args.out), card=card)), flush=True)

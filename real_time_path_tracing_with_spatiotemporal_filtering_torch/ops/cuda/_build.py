@@ -149,6 +149,10 @@ def _declare(lib) -> None:
         # nodes, tris, planes, mask, n, t_max, eps, occluded, counts,
         # seen_node, seen_tri, stream
         "ptsf_shadow_segment": [p, p, p, p, i, f, f, p, p, p, p, p],
+        # the micro-kernels (ops/cuda/micro.py): x, out, ints, floats (null
+        # where the kernel has none), iters, rows, cols (vec only), stream
+        **{f"ptsf_micro_{k}": [p, p, p, p, i, i, i, p]
+           for k in ("scalar", "dynrow", "assemble", "vec", "when", "reduce", "dynwin", "cond")},
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -26,8 +26,12 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene.scene impo
     Camera,
     Light,
     Scene,
+    TriangleData,
     precompute_triangle_data,
     tensors_to,
+)
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.device import (
+    resolve as resolve_device,
 )
 
 
@@ -36,6 +40,8 @@ class Renderer:
 
     ``device`` defaults to the CUDA device, and a machine without one
     raises: the CPU runs the plain versions only when asked (``"cpu"``).
+    ``tri_data``: the scene's tables on ``device``, when the caller has
+    them already (the benchmark suite builds each scene's LBVH once).
     Checkpoints use the JAX package's .npz layout, so a state saved by
     either package resumes in the other.
     """
@@ -47,16 +53,13 @@ class Renderer:
         camera: Optional[Camera] = None,
         light: Optional[Light] = None,
         device=None,
+        tri_data: Optional[TriangleData] = None,
     ) -> None:
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the renderer runs on the card; pass device='cpu' "
-                "for the plain PyTorch versions on the CPU"
-            )
+        self.device = resolve_device(device)
         self.cfg = cfg
         self.scene = scene
-        self.tri_data = precompute_triangle_data(scene, self.device)
+        self.tri_data = (precompute_triangle_data(scene, self.device) if tri_data is None
+                         else tri_data)
         self.camera = tensors_to(
             Camera.default() if camera is None else camera, self.device
         )

@@ -20,7 +20,6 @@ alone. Prints one JSON line per path and the card's name and power limit.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 
 REPS = 5
@@ -119,11 +118,9 @@ def main() -> int:
         return 1
     import real_time_path_tracing_with_spatiotemporal_filtering_torch as pt
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import wavefront
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.device import card_line
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card)
     ok = True
     for splits, over in ((32, dict(max_bounces=8, rr_start_bounce=2)), (88, {})):

@@ -127,11 +127,16 @@ def test_port_does_not_import_jax():
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch as p\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.atrous\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.geometry\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.micro\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.pathtrace\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.wavefront\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.multires\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.pathgrad\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.scene.lbvh\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.benchmarks.suite\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.benchmarks.mosaic_micro\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling\n"
+        "import bench_torch\n"
         "from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets\n"
         "p.Renderer(p.Scene.cornell_box(), p.RenderConfig(width=8, height=8, max_bounces=2),"
         " device='cpu').step()\n"
@@ -157,7 +162,7 @@ def test_nvcc_flags():
     assert "-ftz=true" not in flags
     assert "--fmad=false" in flags
     assert {os.path.basename(s) for s in _build.sources()} == {
-        "geometry.cu", "pathtrace.cu", "atrous.cu", "wavefront.cu"
+        "geometry.cu", "pathtrace.cu", "atrous.cu", "wavefront.cu", "micro.cu"
     }
 
 

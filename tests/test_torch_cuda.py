@@ -25,6 +25,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import 
     _build,
     atrous as cuda_atrous,
     geometry as cuda_geometry,
+    micro as cuda_micro,
     pathtrace as cuda_pathtrace,
     wavefront as cuda_wavefront,
 )
@@ -610,3 +611,33 @@ def test_live_lists_hold_the_live_rays(dev):
         assert torch.equal(listed, torch.nonzero(rays.alive).squeeze(1).to(torch.int32)), seg
         for a, b in zip(rays, every):
             assert torch.equal(a, b), seg
+
+
+@pytest.mark.parametrize("name", list(cuda_micro.PRIMITIVES))
+def test_micro_kernel_equals_plain_twin(dev, name):
+    """Each micro-kernel at two iteration counts: the output equals the
+    input, and the output and every carry equal the plain twin's bits."""
+    x = cuda_micro.make_input(dev)
+    for iters in (16, 300):
+        _build.LAUNCHES.clear()
+        got = cuda_micro.run(name, x, iters)
+        assert _build.LAUNCHES == {f"micro_{cuda_micro.PRIMITIVES[name].kernel}": 1}
+        want = cuda_micro.run_plain(name, x, iters)
+        assert sorted(got) == sorted(want)
+        assert torch.equal(got["out"], x)
+        for key in want:
+            assert torch.equal(got[key], want[key]), (name, iters, key)
+
+
+def test_bench_and_quick_suite_row_run_on_the_card(dev):
+    """bench_torch's frame and one row of the port's suite (--quick, with
+    device time) give finite times on the card."""
+    import bench_torch
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.benchmarks import suite
+
+    ms, name = bench_torch.run_bench(320, 240, frames=2, warmup=1, device=dev)
+    assert np.isfinite(ms) and ms > 0 and name == torch.cuda.get_device_name(dev)
+    (row, result), = suite.run_suite(True, only="cornell_512_spatial_only", device=dev,
+                                     device_time=True)
+    assert row == "cornell_512_spatial_only"
+    assert np.isfinite(result["ms"]) and result["device_ms"] > 0 and result["launches"] > 0

@@ -5,6 +5,8 @@ route's wiring."""
 import dataclasses
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -52,8 +54,9 @@ def _advance_port(r: Renderer) -> torch.Tensor:
 
 @pytest.fixture(scope="module")
 def jax_sequence(cornell_tri_data):
-    """JAX XLA frames with the camera and light moving every frame; also
-    the JAX state before the last frame."""
+    """JAX XLA frames with the camera and light moving every frame (the
+    jitted frame, which donates its history: the state kept is a copy);
+    also the JAX state before the last frame."""
     cam, light = jx.Camera.default(), jx.Light.default()
     hist = jframe.init_history(cornell_tri_data, CFG)
     frames, before_last = [], None
@@ -61,8 +64,8 @@ def jax_sequence(cornell_tri_data):
         cam = dataclasses.replace(cam, position=np.asarray(cam.position) + CAM_STEP)
         light = dataclasses.replace(light, position=np.asarray(light.position) + LIGHT_STEP)
         if i == FRAMES - 1:
-            before_last = (hist, cam, light)
-        rgb, hist = jframe.render_frame_impl(cornell_tri_data, cam, light, hist, CFG)
+            before_last = (jax.tree_util.tree_map(jnp.copy, hist), cam, light)
+        rgb, hist = jframe.render_frame(cornell_tri_data, cam, light, hist, CFG)
         frames.append(np.asarray(rgb))
     return frames, before_last
 
@@ -134,7 +137,7 @@ def test_adaptive_alpha_and_walls_match_jax(cornell_tri_data):
     r = _renderer(cfg)
     for _ in range(2):
         light = dataclasses.replace(light, position=np.asarray(light.position) + LIGHT_STEP)
-        want, hist = jframe.render_frame_impl(cornell_tri_data, cam, light, hist, cfg)
+        want, hist = jframe.render_frame(cornell_tri_data, cam, light, hist, cfg)
         r.move_light(*LIGHT_STEP)
         _assert_matches(r.step().numpy(), want)
 
