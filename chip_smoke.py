@@ -10,7 +10,9 @@ filtering_torch/csrc`` with nvcc, then:
   for bit (``torch.equal``): the default-config kernels at the reference's
   1000x800 frame, and the SVGF and estimator modes (variance-guided a-trous, the ramp blend, the tracer with
   NEE / Russian roulette / several samples / truncate_radiance, the
-  geometry kernel's albedo planes) at 1920x1080;
+  geometry kernel's albedo planes) at 1920x1080; both a-trous kernels at
+  every stride k = 1..9, and timed apart at k = 1, 5 and 9 (their records'
+  ``modes``);
 - checks the kernel route against the repository's golden images;
 - checks the large-scene kernels (the LBVH geometry kernel, the segment
   tracer and the shadow segment) against their plain versions at 1920x1080
@@ -148,6 +150,8 @@ TRI_TEST_OPS = 39
 SLAB_TEST_OPS = 26
 ATROUS_OPS = 273
 ATROUS_VAR_OPS = 328
+# the strides at which the a-trous kernels are timed apart (the frame runs 1..9)
+ATROUS_KS = (1, 5, 9)
 BLEND_OPS = 12
 RAMP_BLEND_OPS = 20
 
@@ -291,6 +295,43 @@ def geometry_bound(cfg, t: int, albedo: bool = False) -> dict:
                  TRI_TEST_OPS * t * cfg.width * cfg.height)
 
 
+def atrous_modes(kernel_fn, plain_fn, name: str, size: str, steps: int,
+                 bound_fields: dict) -> tuple:
+    """An a-trous kernel (``name``) against its plain version at every
+    stride k = 1..steps, bit for bit, and timed at k = 1, 5 and 9. Returns
+    the max abs difference and the modes: device ms of a launch, the plain
+    version's ms and the bound (the same at every k: the taps move no more
+    bytes and do no more operations as k grows)."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling import time_fn
+
+    err, modes = 0.0, []
+    for k in range(1, steps + 1):
+        got, want = kernel_fn(k), plain_fn(k)
+        torch.cuda.synchronize()
+        if isinstance(got, tuple):
+            for part, a, b in zip(("color", "var"), got, want):
+                err = max(err, same_bits(f"{name} k={k} {part}", a, b))
+        else:
+            err = max(err, same_bits(f"{name} k={k}", got, want))
+        if k in ATROUS_KS:
+            modes.append(dict(mode=f"k={k}, {size}",
+                              **kernel_ms(lambda: kernel_fn(k), f"{name}_kernel"),
+                              plain_ms=time_fn(lambda: plain_fn(k), iters=3), **bound_fields))
+            print(f"{name}_kernel k={k} {size}: {modes[-1]['ms']:.4f} ms", flush=True)
+    return err, modes
+
+
+def atrous_record(name: str, replaces: str, err: float, modes: list) -> dict:
+    """An a-trous kernel's record: its times and bound from the k = 5 mode."""
+    k5 = modes[ATROUS_KS.index(5)]
+    fields = {f: k5[f] for f in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}
+    rec = record(name, "atrous.cu", replaces, max_abs_err=err, **fields)
+    rec["modes"] = modes
+    return rec
+
+
 def kernel_phase(pt, cuda_ops, dev):
     """Each kernel against its plain version at 1000x800; returns the
     per-kernel records (launch counts filled in later)."""
@@ -359,19 +400,10 @@ def kernel_phase(pt, cuda_ops, dev):
     # -- a-trous iteration, k = 1..9, seeded HDR color on the real G-buffer --
     rng = np.random.default_rng(SEED)
     color = torch.tensor(rng.exponential(0.5, (h, w, 3)).astype(np.float32), device=dev)
-    err = 0.0
-    for step in range(1, cfg.wavelet_iterations + 1):
-        a = at_mod.atrous_iteration(color, p.normal, p.depth, step, cfg)
-        b = at_mod.atrous_iteration_plain(color, p.normal, p.depth, step, cfg)
-        torch.cuda.synchronize()
-        err = max(err, same_bits(f"atrous_iter k={step}", a, b))
-    records.append(record(
-        "atrous_iter", "atrous.cu", "ops/pallas/atrous.py:35", max_abs_err=err,
-        **kernel_ms(lambda: at_mod.atrous_iteration(color, p.normal, p.depth, 5, cfg),
-                    "atrous_iter_kernel"),
-        plain_ms=time_fn(lambda: at_mod.atrous_iteration_plain(color, p.normal, p.depth, 5, cfg), iters=3),
-        **bound(40 * h * w, ATROUS_OPS * h * w),
-    ))
+    records.append(atrous_record("atrous_iter", "ops/pallas/atrous.py:35", *atrous_modes(
+        lambda k: at_mod.atrous_iteration(color, p.normal, p.depth, k, cfg),
+        lambda k: at_mod.atrous_iteration_plain(color, p.normal, p.depth, k, cfg),
+        "atrous_iter", f"{w}x{h}", cfg.wavelet_iterations, bound(40 * h * w, ATROUS_OPS * h * w))))
 
     # -- temporal blend: random backprojection, fixed and adaptive alpha --
     prev = torch.tensor(rng.exponential(0.5, (h, w, 3)).astype(np.float32), device=dev)
@@ -439,21 +471,11 @@ def svgf_kernel_phase(pt, cuda_ops, dev, records) -> None:
     rng = np.random.default_rng(SEED + 1)
     color = torch.tensor(rng.exponential(0.5, (h, w, 3)).astype(np.float32), device=dev)
     var = torch.tensor((0.1 * rng.random((h, w))).astype(np.float32), device=dev)
-    err = 0.0
-    for step in range(1, cfg.wavelet_iterations + 1):
-        ac, av = at_mod.atrous_iteration_var(color, var, p.normal, p.depth, step, cfg)
-        bc, bv = at_mod.atrous_iteration_var_plain(color, var, p.normal, p.depth, step, cfg)
-        torch.cuda.synchronize()
-        err = max(err, same_bits(f"atrous_iter_var k={step} color", ac, bc),
-                  same_bits(f"atrous_iter_var k={step} var", av, bv))
-    records.append(record(
-        "atrous_iter_var", "atrous.cu", "ops/pallas/atrous.py:104", max_abs_err=err,
-        **kernel_ms(lambda: at_mod.atrous_iteration_var(color, var, p.normal, p.depth, 5, cfg),
-                    "atrous_iter_var_kernel"),
-        plain_ms=time_fn(
-            lambda: at_mod.atrous_iteration_var_plain(color, var, p.normal, p.depth, 5, cfg), iters=3),
-        **bound(48 * h * w, ATROUS_VAR_OPS * h * w),
-    ))
+    records.append(atrous_record("atrous_iter_var", "ops/pallas/atrous.py:104", *atrous_modes(
+        lambda k: at_mod.atrous_iteration_var(color, var, p.normal, p.depth, k, cfg),
+        lambda k: at_mod.atrous_iteration_var_plain(color, var, p.normal, p.depth, k, cfg),
+        "atrous_iter_var", f"{w}x{h}", cfg.wavelet_iterations,
+        bound(48 * h * w, ATROUS_VAR_OPS * h * w))))
 
     # -- ramp blend: random backprojection, both reset modes, adaptive on/off --
     prev = torch.tensor(rng.exponential(0.5, (h, w, 3)).astype(np.float32), device=dev)

@@ -1,4 +1,5 @@
-// A-trous iteration and temporal EMA blend, one thread per pixel.
+// A-trous iterations on blocks of the stride-k lattice that compute each edge
+// weight once, and the temporal EMA blends; one thread per pixel.
 //
 // atrous_iter replaces the TPU kernel _iter_kernel
 // (real_time_path_tracing_with_spatiotemporal_filtering_tpu/ops/pallas/atrous.py:35):
@@ -36,59 +37,44 @@
 // and the new age. The TPU kernel routed small reprojection windows,
 // aligned views and large ones three ways; a direct gather covers all.
 //
-// What bounds them on the H100: atrous_iter is bound by the special
-// functions (one powf and two expf per tap, 81 per pixel) more than by its
-// ~80 bytes per pixel of traffic; atrous_iter_var has the same special
-// functions per tap and adds 9 taps of the variance plane and the 9-tap
-// prefilter, for 48 bytes in and out per pixel. The taps of neighbouring threads overlap and
-// are served by L1/L2, so no tile or halo is staged by hand. The blend
-// moves ~50 bytes per pixel (the ramp mode ~70) and is bound by memory
-// bandwidth; its gather is coalesced while the camera moves slowly.
-// powf/expf are the precise library functions (no fast math): __powf
-// would drift on w_n = x^128.
+// What bounds them on the H100, and the design. A pixel's 9 taps cost 9
+// edge weights, each a precise powf, two expf, a sqrtf and two IEEE
+// divides (the variance-guided one: powf, two expf, two divides), about
+// 115 instructions with the loads; the kernels are bound by issuing them,
+// not by the ~40-48 bytes a pixel moves. The weight of an edge is
+// symmetric: the weight p gives q at offset +d equals, bit for bit, the
+// weight q gives p at -d (n_p.n_q, |d_p - d_q| and |c_p - c_q|^2 are
+// symmetric in IEEE float32 without contraction, and the build runs with
+// --fmad=false). So each edge's weight is computed once:
+// - A block covers 64 columns by 8 rows of the stride-k lattice (y0 + t k),
+//   one thread a pixel; blockIdx.y picks the residue y0 mod k and a chunk of
+//   lattice rows, so the block's halo is one lattice row above and below and
+//   k columns to the left, whatever k.
+// - Each thread computes its pixel's weights to the four forward taps
+//   (k,0), (0,k), (k,k), (k,-k): the whole kHBox*((w_n*w_z)*w_l) for
+//   atrous_iter, the prefix (kHBox*w_n)*w_z for atrous_iter_var, whose w_l
+//   divides by p's own sigma_l sqrt(g) + eps. It keeps them in registers
+//   and in shared memory; the block's threads share out the halo's
+//   weights (the p - d of its pixels that lie outside the block).
+// - After one barrier each pixel sums its taps in the plain order (x
+//   offset outer, y offset inner): the centre tap computed as before, a
+//   backward tap -d read as p - d's forward weight where p - d lies in the
+//   image, and computed directly otherwise (there the clamped tap is not
+//   p - d's forward tap).
+// About 5.4-5.8 weight evaluations a pixel instead of 9 (atrous_time.py
+// --count). Loads go through L1 as before: staging the tile in shared
+// memory cost more instructions and barriers than it saved, and a 512-
+// thread block at 40 registers (3 blocks an SM) keeps the issue slots
+// fuller than smaller blocks do. The blend moves ~50 bytes per pixel (the
+// ramp mode ~70) and is bound by memory bandwidth; its gather is coalesced
+// while the camera moves slowly. powf/expf are the precise library
+// functions (no fast math): __powf would drift on w_n = x^128.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kHBox = (float)(1.0 / 9.0);
-
-__global__ void atrous_iter_kernel(const float* __restrict__ color, const float* __restrict__ normal,
-                                   const float* __restrict__ depth, float* __restrict__ out,
-                                   int width, int height, int k, float sigma_n, float sigma_z,
-                                   float sigma_l) {
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
-  int p = y * width + x;
-  float cr = color[3 * p], cg = color[3 * p + 1], cb = color[3 * p + 2];
-  float nx = normal[3 * p], ny = normal[3 * p + 1], nz = normal[3 * p + 2];
-  float dp = depth[p];
-  float sr = 0.0f, sg = 0.0f, sb = 0.0f, den = 0.0f;
-  // GLSL loops i (x offset) outer, j (y offset) inner: the same
-  // accumulation order as the plain version
-  for (int i = -1; i <= 1; ++i) {
-    int qx = min(max(x + i * k, 0), width - 1);
-    for (int j = -1; j <= 1; ++j) {
-      int qy = min(max(y + j * k, 0), height - 1);
-      int q = qy * width + qx;
-      float qr = color[3 * q], qg = color[3 * q + 1], qb = color[3 * q + 2];
-      float ndot = nx * normal[3 * q] + ny * normal[3 * q + 1] + nz * normal[3 * q + 2];
-      float w_n = powf(fmaxf(ndot, 0.0f), sigma_n);
-      float w_z = expf(-fabsf(dp - depth[q]) / sigma_z);
-      float er = cr - qr, eg = cg - qg, eb = cb - qb;
-      float w_l = expf(-sqrtf(er * er + eg * eg + eb * eb) / sigma_l);
-      float hw = kHBox * (w_n * w_z * w_l);
-      sr = sr + hw * qr;
-      sg = sg + hw * qg;
-      sb = sb + hw * qb;
-      den = den + hw;
-    }
-  }
-  out[3 * p] = sr / den;
-  out[3 * p + 1] = sg / den;
-  out[3 * p + 2] = sb / den;
-}
 
 // Rec.709 luminance (ops/atrous.luminance_planes)
 constexpr float kLumR = 0.2126f, kLumG = 0.7152f, kLumB = 0.0722f;
@@ -97,55 +83,213 @@ __device__ __forceinline__ float luminance(float r, float g, float b) {
   return kLumR * r + kLumG * g + kLumB * b;
 }
 
-__global__ void atrous_iter_var_kernel(const float* __restrict__ color,
-                                       const float* __restrict__ var,
-                                       const float* __restrict__ normal,
-                                       const float* __restrict__ depth, float* __restrict__ out,
-                                       float* __restrict__ var_out, int width, int height, int k,
-                                       float sigma_n, float sigma_z, float sigma_l,
-                                       float var_eps) {
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
-  int p = y * width + x;
-  // variance prefilter (ops/atrous._gauss3): rows outer, columns inner
-  const float w3[3] = {0.25f, 0.5f, 0.25f};
-  float g = 0.0f;
-  for (int gy = -1; gy <= 1; ++gy) {
-    int ry = min(max(y + gy, 0), height - 1);
-    for (int gx = -1; gx <= 1; ++gx) {
-      int rx = min(max(x + gx, 0), width - 1);
-      g = g + (w3[gy + 1] * w3[gx + 1]) * var[ry * width + rx];
+// The a-trous block: kTX columns by kTY rows of the stride-k lattice, one
+// thread a pixel; __launch_bounds__ asks for kMinBlocks blocks an SM (40
+// registers, 48 warps an SM).
+constexpr int kTX = 64, kTY = 8, kMinBlocks = 3;
+
+__device__ __forceinline__ int clampi(int v, int hi) { return min(max(v, 0), hi); }
+
+// A pixel's color, normal and depth.
+struct Px {
+  float c[3], n[3], d;
+};
+
+__device__ __forceinline__ Px load_px(const float* __restrict__ color,
+                                      const float* __restrict__ normal,
+                                      const float* __restrict__ depth, int g) {
+  Px p;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    p.c[i] = color[3 * g + i];
+    p.n[i] = normal[3 * g + i];
+  }
+  p.d = depth[g];
+  return p;
+}
+
+// The weight of the edge (p, q), symmetric in (p, q) bit for bit:
+// atrous_iter's whole kHBox * (w_n * w_z * w_l), or (VAR) atrous_iter_var's
+// prefix kHBox * w_n * w_z, whose w_l divides by p's own stddev.
+template <bool VAR>
+__device__ __forceinline__ float edge_weight(const Px& p, const Px& q, float sigma_n,
+                                             float sigma_z, float sigma_l) {
+  const float ndot = p.n[0] * q.n[0] + p.n[1] * q.n[1] + p.n[2] * q.n[2];
+  const float w_n = powf(fmaxf(ndot, 0.0f), sigma_n);
+  const float w_z = expf(-fabsf(p.d - q.d) / sigma_z);
+  if (VAR) return kHBox * w_n * w_z;
+  const float er = p.c[0] - q.c[0], eg = p.c[1] - q.c[1], eb = p.c[2] - q.c[2];
+  const float w_l = expf(-sqrtf(er * er + eg * eg + eb * eb) / sigma_l);
+  return kHBox * (w_n * w_z * w_l);
+}
+
+// The forward offsets d = 0..3: (k,0), (0,k), (k,k), (k,-k), in units of k.
+__device__ __forceinline__ int offset_dx(int d) { return d == 1 ? 0 : 1; }
+__device__ __forceinline__ int offset_dy(int d) { return d == 0 ? 0 : (d == 3 ? -1 : 1); }
+
+// The forward offset of tap (i, j) (x, y offsets in units of k) that holds
+// its weight; a backward tap takes the offset of (-i, -j).
+__host__ __device__ constexpr int offset_index(int i, int j) {
+  if (i < 0 || (i == 0 && j < 0)) i = -i, j = -j;
+  return i == 0 ? 1 : (j == 0 ? 0 : (j > 0 ? 2 : 3));
+}
+
+// A block's place on the stride-k lattice and its weight positions.
+// blockIdx.x is a kTX-column strip, blockIdx.y a residue y0 mod k and a chunk
+// of kTY lattice rows y0 + t k. Weight positions (r, wc): rows r = t + 1 for
+// t in [-1, kTY], columns wc in [0, m + kTX) with m = min(k, kTX): the tile's
+// column u is wc = m + u, and its backward taps at -k read wc = u (the k
+// columns left of the tile, or a band of kTX columns at -k once k >= kTX).
+struct Lattice {
+  static constexpr int R = kTY + 2;
+  int k, m, ww, x0, y0;
+
+  __device__ Lattice(int k_, int chunks) : k(k_) {
+    m = min(k, kTX);
+    ww = m + kTX;
+    x0 = blockIdx.x * kTX;
+    const int residue = blockIdx.y / chunks;
+    y0 = residue + (blockIdx.y - residue * chunks) * kTY * k;
+  }
+  // image column and row of weight position (r, wc)
+  __device__ int col_x(int wc) const { return wc < m ? x0 - k + wc : x0 + wc - m; }
+  __device__ int row_y(int r) const { return y0 + (r - 1) * k; }
+  // The halo: each p - d of the tile's pixels p that is not a pixel of the
+  // tile. Row -1 for (0,k) and (k,k), row kTY for (k,-k), and the columns
+  // at -k: (k,0) on rows [0, kTY), (k,k) on [0, kTY - 1), (k,-k) on [1, kTY).
+  __device__ int halo_size() const { return 3 * kTX + m * (3 * kTY - 2); }
+  __device__ void halo_item(int h, int* d, int* r, int* wc) const {
+    if (h < 3 * kTX) {
+      const int s = h / kTX, i = h - s * kTX;
+      *d = s + 1;
+      *r = s < 2 ? 0 : kTY + 1;
+      *wc = s == 0 ? m + i : i;
+      return;
+    }
+    h -= 3 * kTX;
+    const int a = h / m;
+    *wc = h - a * m;
+    if (a < kTY) {
+      *d = 0, *r = 1 + a;
+    } else if (a < 2 * kTY - 1) {
+      *d = 2, *r = 1 + a - kTY;
+    } else {
+      *d = 3, *r = 3 + a - 2 * kTY;
     }
   }
-  float cr = color[3 * p], cg = color[3 * p + 1], cb = color[3 * p + 2];
-  float nx = normal[3 * p], ny = normal[3 * p + 1], nz = normal[3 * p + 2];
-  float dp = depth[p];
-  float lp = luminance(cr, cg, cb);
-  float denom_l = sigma_l * sqrtf(g) + var_eps;
+};
+
+// Both kernels. Each thread computes its pixel's four forward weights
+// (kept in registers and in shared memory), the block's threads share out
+// the halo's weights, and after one barrier each pixel sums its 9 taps in
+// the plain order (x offset outer, y offset inner): the centre tap computed
+// as before, a forward tap from the registers, a backward tap -d as the
+// forward weight of p - d where p - d lies in the image, computed directly
+// otherwise (there the clamped tap is not p - d's forward tap). VAR
+// multiplies the prefix by w_l, computed with p's own stddev, and
+// propagates the variance.
+template <bool VAR>
+__device__ __forceinline__ void atrous_block(const float* __restrict__ color,
+                                             const float* __restrict__ var,
+                                             const float* __restrict__ normal,
+                                             const float* __restrict__ depth,
+                                             float* __restrict__ out, float* __restrict__ var_out,
+                                             float sigma_n, float sigma_z, float sigma_l,
+                                             float var_eps, int width, int height, int k,
+                                             int chunks) {
+  extern __shared__ float s_w[];  // four planes of R x (m + kTX) forward weights
+  const Lattice L(k, chunks);
+  if (L.y0 >= height) return;  // an empty chunk past the last row: the whole block
+  const int u = threadIdx.x, t = threadIdx.y, x = L.x0 + u, y = L.y0 + t * k;
+  const int plane = Lattice::R * L.ww;
+  const bool in = x < width && y < height;
+  auto clamped = [&](int gx, int gy) {
+    return clampi(gy, height - 1) * width + clampi(gx, width - 1);
+  };
+  Px p;
+  float fw[4];
+  if (in) {
+    p = load_px(color, normal, depth, y * width + x);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const Px q = load_px(color, normal, depth,
+                           clamped(x + offset_dx(d) * k, y + offset_dy(d) * k));
+      fw[d] = edge_weight<VAR>(p, q, sigma_n, sigma_z, sigma_l);
+      s_w[d * plane + (t + 1) * L.ww + L.m + u] = fw[d];
+    }
+  }
+  for (int h = t * kTX + u; h < L.halo_size(); h += kTX * kTY) {
+    int d, r, wc;
+    L.halo_item(h, &d, &r, &wc);
+    const int gx = L.col_x(wc), gy = L.row_y(r);
+    if (gx < 0 || gx >= width || gy < 0 || gy >= height) continue;  // never read
+    const Px a = load_px(color, normal, depth, gy * width + gx);
+    const Px b = load_px(color, normal, depth,
+                         clamped(gx + offset_dx(d) * k, gy + offset_dy(d) * k));
+    s_w[d * plane + r * L.ww + wc] = edge_weight<VAR>(a, b, sigma_n, sigma_z, sigma_l);
+  }
+  __syncthreads();
+  if (!in) return;
+  float lp = 0.0f, denom_l = 0.0f;
+  if (VAR) {
+    // variance prefilter (ops/atrous._gauss3): rows outer, columns inner
+    const float w3[3] = {0.25f, 0.5f, 0.25f};
+    float g = 0.0f;
+    for (int gy = -1; gy <= 1; ++gy) {
+      for (int gx = -1; gx <= 1; ++gx)
+        g = g + (w3[gy + 1] * w3[gx + 1]) * var[clamped(x + gx, y + gy)];
+    }
+    lp = luminance(p.c[0], p.c[1], p.c[2]);
+    denom_l = sigma_l * sqrtf(g) + var_eps;
+  }
   float sr = 0.0f, sg = 0.0f, sb = 0.0f, vnum = 0.0f, den = 0.0f;
+#pragma unroll
   for (int i = -1; i <= 1; ++i) {
-    int qx = min(max(x + i * k, 0), width - 1);
+#pragma unroll
     for (int j = -1; j <= 1; ++j) {
-      int qy = min(max(y + j * k, 0), height - 1);
-      int q = qy * width + qx;
-      float qr = color[3 * q], qg = color[3 * q + 1], qb = color[3 * q + 2];
-      float ndot = nx * normal[3 * q] + ny * normal[3 * q + 1] + nz * normal[3 * q + 2];
-      float w_n = powf(fmaxf(ndot, 0.0f), sigma_n);
-      float w_z = expf(-fabsf(dp - depth[q]) / sigma_z);
-      float w_l = expf(-fabsf(lp - luminance(qr, qg, qb)) / denom_l);
-      float hw = kHBox * w_n * w_z * w_l;
+      const int q = clamped(x + i * k, y + j * k);
+      float hw;
+      if (i == 0 && j == 0) {
+        hw = edge_weight<VAR>(p, p, sigma_n, sigma_z, sigma_l);
+      } else if (i > 0 || (i == 0 && j > 0)) {
+        hw = fw[offset_index(i, j)];
+      } else if (x + i * k >= 0 && y + j * k >= 0 && y + j * k < height) {
+        hw = s_w[offset_index(i, j) * plane + (t + 1 + j) * L.ww + (i + 1) * L.m + u];
+      } else {
+        hw = edge_weight<VAR>(p, load_px(color, normal, depth, q), sigma_n, sigma_z, sigma_l);
+      }
+      const float qr = color[3 * q], qg = color[3 * q + 1], qb = color[3 * q + 2];
+      if (VAR) hw = hw * expf(-fabsf(lp - luminance(qr, qg, qb)) / denom_l);
       sr = sr + hw * qr;
       sg = sg + hw * qg;
       sb = sb + hw * qb;
-      vnum = vnum + hw * hw * var[q];
+      if (VAR) vnum = vnum + hw * hw * var[q];
       den = den + hw;
     }
   }
-  out[3 * p] = sr / den;
-  out[3 * p + 1] = sg / den;
-  out[3 * p + 2] = sb / den;
-  var_out[p] = vnum / (den * den);
+  const int o = y * width + x;
+  out[3 * o] = sr / den;
+  out[3 * o + 1] = sg / den;
+  out[3 * o + 2] = sb / den;
+  if (VAR) var_out[o] = vnum / (den * den);
+}
+
+__global__ void __launch_bounds__(kTX * kTY, kMinBlocks)
+    atrous_iter_kernel(const float* __restrict__ color, const float* __restrict__ normal,
+                       const float* __restrict__ depth, float* __restrict__ out, float sigma_n,
+                       float sigma_z, float sigma_l, int width, int height, int k, int chunks) {
+  atrous_block<false>(color, nullptr, normal, depth, out, nullptr, sigma_n, sigma_z, sigma_l,
+                      0.0f, width, height, k, chunks);
+}
+
+__global__ void __launch_bounds__(kTX * kTY, kMinBlocks)
+    atrous_iter_var_kernel(const float* __restrict__ color, const float* __restrict__ var,
+                           const float* __restrict__ normal, const float* __restrict__ depth,
+                           float* __restrict__ out, float* __restrict__ var_out, float sigma_n,
+                           float sigma_z, float sigma_l, float var_eps, int width, int height,
+                           int k, int chunks) {
+  atrous_block<true>(color, var, normal, depth, out, var_out, sigma_n, sigma_z, sigma_l, var_eps,
+                     width, height, k, chunks);
 }
 
 __global__ void temporal_blend_kernel(const float* __restrict__ filtered,
@@ -201,15 +345,29 @@ dim3 grid_for(int width, int height, dim3 block) {
   return dim3((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
 }
 
+// Launch a lattice kernel: blocks of kTX x kTY threads over (kTX-column
+// strip, residue y0 mod k and chunk of kTY lattice rows); residues at or
+// past the last row are left out. Shared memory: four planes of (kTY + 2) x
+// (min(k, kTX) + kTX) weights, at most 20 KB at any k.
+template <class Kernel, class... Args>
+int launch_lattice(Kernel kernel, int width, int height, int k, cudaStream_t stream,
+                   Args... args) {
+  if (k < 1) return (int)cudaErrorInvalidValue;
+  const int rows = (height + k - 1) / k;  // lattice rows of residue 0, the most
+  const int chunks = (rows + kTY - 1) / kTY;
+  const dim3 grid((width + kTX - 1) / kTX, min(k, height) * chunks), block(kTX, kTY);
+  const size_t bytes = sizeof(float) * 4 * Lattice::R * (min(k, kTX) + kTX);
+  kernel<<<grid, block, bytes, stream>>>(args..., width, height, k, chunks);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ptsf_atrous_iter(const float* color, const float* normal, const float* depth,
                                 float* out, int width, int height, int k, float sigma_n,
                                 float sigma_z, float sigma_l, cudaStream_t stream) {
-  dim3 block(32, 8);
-  atrous_iter_kernel<<<grid_for(width, height, block), block, 0, stream>>>(
-      color, normal, depth, out, width, height, k, sigma_n, sigma_z, sigma_l);
-  return (int)cudaGetLastError();
+  return launch_lattice(atrous_iter_kernel, width, height, k, stream, color, normal, depth, out,
+                        sigma_n, sigma_z, sigma_l);
 }
 
 extern "C" int ptsf_temporal_blend(const float* filtered, const float* prev_image,
@@ -226,11 +384,8 @@ extern "C" int ptsf_atrous_iter_var(const float* color, const float* var, const 
                                     const float* depth, float* out, float* var_out, int width,
                                     int height, int k, float sigma_n, float sigma_z,
                                     float sigma_l, float var_eps, cudaStream_t stream) {
-  dim3 block(32, 8);
-  atrous_iter_var_kernel<<<grid_for(width, height, block), block, 0, stream>>>(
-      color, var, normal, depth, out, var_out, width, height, k, sigma_n, sigma_z, sigma_l,
-      var_eps);
-  return (int)cudaGetLastError();
+  return launch_lattice(atrous_iter_var_kernel, width, height, k, stream, color, var, normal,
+                        depth, out, var_out, sigma_n, sigma_z, sigma_l, var_eps);
 }
 
 extern "C" int ptsf_temporal_blend_ramp(const float* filtered, const float* prev_image,

@@ -46,10 +46,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _seeded(seed, dev):
+def _seeded(seed, dev, cfg=CFG):
     """Seeded HDR color and history, lambda and a random backprojection."""
     r = np.random.default_rng(seed)
-    h, w = CFG.height, CFG.width
+    h, w = cfg.height, cfg.width
 
     def t(a):
         return torch.tensor(a, device=dev)
@@ -61,16 +61,23 @@ def _seeded(seed, dev):
             t(r.integers(0, w, (h, w)).astype(np.int32)))
 
 
-def _geometry_args(dev):
+def _geometry_args(dev, cfg=CFG):
     td = precompute_triangle_data(Scene.cornell_box(), dev)
     cam, light = Camera.default(dev), Light.default(dev)
-    view, proj = frame.camera_matrices(cam, CFG)
+    view, proj = frame.camera_matrices(cam, cfg)
     view_p, proj_p = frame.camera_matrices(
-        cam.position + torch.tensor([0.0, 0.0, 0.5], device=dev), CFG
+        cam.position + torch.tensor([0.0, 0.0, 0.5], device=dev), cfg
     )
     return (td, td.lut, cam.position, cam.rotation, light.position,
             light.position + torch.tensor([0.5, 0.0, 0.0], device=dev),
-            light.color, light.color * 0.5, view, proj, view_p, proj_p, CFG)
+            light.color, light.color * 0.5, view, proj, view_p, proj_p, cfg)
+
+
+# The a-trous kernels' frames: the reference's 1000x800, one that splits
+# unevenly into the kernels' 64-column, 8-lattice-row tiles, and 13 rows by
+# 37 columns, where for k >= 7 the taps +-k clamp at both ends of every
+# column and the tile's halo clamps on every side.
+ATROUS_SIZES = [(1000, 800), (1003, 797), (37, 13)]
 
 
 def test_geometry_kernel(dev):
@@ -108,14 +115,15 @@ def test_trace_kernel(dev, walls):
     assert outside <= 1e-3
 
 
+@pytest.mark.parametrize("size", ATROUS_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("k", range(1, 10))
-def test_atrous_iter_kernel(dev, k):
-    geo = cuda_geometry.geometry_pass(*_geometry_args(dev))
-    color = _seeded(k, dev)[0]
-    torch.testing.assert_close(
-        cuda_atrous.atrous_iteration(color, geo.normal, geo.depth, k, CFG),
-        cuda_atrous.atrous_iteration_plain(color, geo.normal, geo.depth, k, CFG),
-        rtol=1e-5, atol=1e-5,
+def test_atrous_iter_kernel(dev, k, size):
+    cfg = dataclasses.replace(CFG, width=size[0], height=size[1])
+    geo = cuda_geometry.geometry_pass(*_geometry_args(dev, cfg))
+    color = _seeded(k, dev, cfg)[0]
+    assert torch.equal(
+        cuda_atrous.atrous_iteration(color, geo.normal, geo.depth, k, cfg),
+        cuda_atrous.atrous_iteration_plain(color, geo.normal, geo.depth, k, cfg),
     )
 
 
@@ -194,16 +202,17 @@ def test_trace_kernel_modes(dev, overrides):
     assert tests.min().item() >= cfg.spp * cfg.sample_batches * td.num_triangles
 
 
+@pytest.mark.parametrize("size", ATROUS_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("k", range(1, 10))
-def test_atrous_iter_var_kernel(dev, k):
-    geo = cuda_geometry.geometry_pass(*_geometry_args(dev))
-    color = _seeded(k, dev)[0]
-    var = 0.1 * _seeded(k + 10, dev)[2]
-    got_c, got_v = cuda_atrous.atrous_iteration_var(color, var, geo.normal, geo.depth, k, CFG)
+def test_atrous_iter_var_kernel(dev, k, size):
+    cfg = dataclasses.replace(CFG, width=size[0], height=size[1])
+    geo = cuda_geometry.geometry_pass(*_geometry_args(dev, cfg))
+    color = _seeded(k, dev, cfg)[0]
+    var = 0.1 * _seeded(k + 10, dev, cfg)[2]
+    got_c, got_v = cuda_atrous.atrous_iteration_var(color, var, geo.normal, geo.depth, k, cfg)
     want_c, want_v = cuda_atrous.atrous_iteration_var_plain(color, var, geo.normal, geo.depth,
-                                                             k, CFG)
-    torch.testing.assert_close(got_c, want_c, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(got_v, want_v, rtol=1e-5, atol=1e-5)
+                                                             k, cfg)
+    assert torch.equal(got_c, want_c) and torch.equal(got_v, want_v)
 
 
 @pytest.mark.parametrize("frame_idx", [0, 3])
