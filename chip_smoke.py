@@ -54,15 +54,16 @@ filtering_torch/csrc`` with nvcc, then:
   ``torch.profiler`` trace (``ms``; the host's cost of the call does not
   enter it), beside CUDA events around back-to-back wrapper calls
   (``call_ms``), and times the frames of both routes with CUDA events;
-- reports the lane efficiency of the two trace kernels (lanes doing work
-  over 32 x warp steps, counted by their counting instantiations) as
-  ``lane_eff`` on the ``trace`` and ``trace_segment`` records and modes,
-  and checks that the segment kernel's live lists hold exactly the rays
-  that go on;
+- reports the lane efficiency of the two trace kernels and of the LBVH
+  geometry and shadow kernels' walks (lanes doing work over 32 x warp
+  steps, counted by their counting instantiations) as ``lane_eff`` on the
+  ``trace``, ``trace_segment``, ``geometry_bvh`` and ``shadow_segment``
+  records and modes, and checks that the segment kernel's live lists hold
+  exactly the rays that go on;
 - models, from the same runs' path lengths and walk steps, the lane
-  efficiency the earlier designs of the two kernels (one thread per pixel;
-  one thread per ray slot) would have had on the same work, and prints it
-  on a line of its own, apart from what was measured.
+  efficiency the earlier designs of the two trace kernels (one thread per
+  pixel; one thread per ray slot) would have had on the same work, and
+  prints it on a line of its own, apart from what was measured.
 
 Prints the card's name and power limit, one JSON line of per-kernel results
 (with each kernel's bound: the least time the card could take for the same
@@ -696,18 +697,83 @@ def walk_bound(counts, nbytes: float, per_tri: int = 0) -> dict:
                 tri_tests=tri, box_tests=box, node_rows_read=nodes, tri_rows_read=tris)
 
 
+def walk_lane_fields(lanes, counts, rays: int) -> dict:
+    """The lane efficiency of an LBVH geometry or shadow launch over
+    ``rays`` rays, from the ``lanes`` of its counting instantiation: the
+    share of the warps' lanes that had a ray and of the walk's lane steps
+    that did work, and the walk's node visits a ray (box tests / 2)."""
+    import torch
+
+    rays_share, walk_share = lane_share(lanes)
+    box = int(counts.tests[1].sum(dtype=torch.int64).item())
+    return dict(lane_eff=dict(rays=rays_share, walk=walk_share),
+                steps_per_ray=box / 2 / max(rays, 1))
+
+
 def geometry_bvh_bound(geo_mod, args, td, cfg) -> dict:
     """The bound of one LBVH geometry launch on ``args``: the output planes
     (44 B a pixel), the 56 parameters, the rows the walks read, and the hit
     position (v0, e1, e2), current and previous vertices and filter normal
-    of each distinct committed triangle (120 B)."""
+    of each distinct committed triangle (120 B); with the lane counts of
+    the walks."""
     import torch
 
-    counts = geo_mod.WalkCounts.zeros(cfg.width * cfg.height, td)
-    out = geo_mod.geometry_pass_bvh(*args, counts=counts)
+    n = cfg.width * cfg.height
+    counts = geo_mod.WalkCounts.zeros(n, td)
+    lanes = torch.zeros(4, dtype=torch.int64, device=td.lut.device)
+    out = geo_mod.geometry_pass_bvh(*args, counts=counts, lanes=lanes)
     committed = torch.unique(out.visibility[out.visibility > 0]).numel()
-    fields = walk_bound(counts, 44 * cfg.width * cfg.height + 224 + 120 * committed)
-    return dict(fields, committed_tris=committed)
+    fields = walk_bound(counts, 44 * n + 224 + 120 * committed)
+    return dict(fields, committed_tris=committed, **walk_lane_fields(lanes, counts, n))
+
+
+def path_c_shadow_rays(pt, geo_mod, td, cfg, cam, light, dev) -> tuple:
+    """Path C's bounce-0 shadow rays at ``cfg``'s size, as the G-buffer seed
+    makes them (ops/cuda/wavefront._seed_from_gbuffer, frame 5, batch 0,
+    sample 0): (origins, directions, caps, mask)."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
+        camera as cam_ops,
+        pathtrace as plain_pt,
+        rng as rng_ops,
+    )
+
+    w, h = cfg.width, cfg.height
+    geo = geo_mod.geometry_pass_bvh(*stress_geo_args(pt, td, cfg, dev), emit_albedo=True)
+    n = w * h
+    idx = torch.arange(n, device=dev)
+    px, py = idx % w, torch.div(idx, w, rounding_mode="floor")
+    state, gx, gy = rng_ops.sample_jitter(px, py, 5, 0, 0)
+    dirs = cam_ops.pixel_rays(px, py, w, h, cfg.fov, jitter_x=0.0 * gx, jitter_y=0.0 * gy,
+                              rotation=cam.rotation)
+    carry = plain_pt.primary_carry(
+        cam.position.expand(n, 3), dirs, state, geo.visibility.reshape(n),
+        geo.world_pos.reshape(n, 3), geo.normal.reshape(n, 3), geo.albedo.reshape(n, 3),
+        light.position, light.color * cfg.light_intensity, cfg, defer_nee_shadow=True)
+    w_l, s_t, _, mask = carry[6]
+    return carry[0], w_l, torch.where(mask, s_t, torch.zeros_like(s_t)), mask
+
+
+def shadow_segment_fields(wf, geo_mod, td, cfg, rays) -> dict:
+    """ms of shadow_segment on ``rays`` (path_c_shadow_rays, a frame's
+    pixels) and its bound: per lane the bool mask read and the int32 flag
+    written (5 B), per lane of the mask its origin, direction and cap read
+    (28 B), and the rows the walks read; with the lane counts of the
+    walks."""
+    import torch
+
+    o, w_l, cap, mask = rays
+    n = mask.shape[0]
+    masked = int(mask.sum().item())
+    counts = geo_mod.WalkCounts.zeros(n, td)
+    lanes = torch.zeros(4, dtype=torch.int64, device=td.lut.device)
+    wf.shadow_segment(o, w_l, cap, mask, td, cfg, counts=counts, lanes=lanes, width=cfg.width)
+    return dict(**kernel_ms(lambda: wf.shadow_segment(o, w_l, cap, mask, td, cfg,
+                                                      width=cfg.width),
+                            "shadow_segment_kernel"),
+                **walk_bound(counts, 5 * n + 28 * masked),
+                **walk_lane_fields(lanes, counts, masked))
 
 
 def stress_geo_args(pt, td, cfg, dev):
@@ -872,11 +938,6 @@ def large_kernel_phase(pt, dev, records) -> None:
     shadow_segment."""
     import torch
 
-    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
-        camera as cam_ops,
-        pathtrace as plain_pt,
-        rng as rng_ops,
-    )
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import (
         geometry as geo_mod,
         pathtrace as pt_mod,
@@ -996,37 +1057,19 @@ def large_kernel_phase(pt, dev, records) -> None:
 
     # -- shadow segment: path C's bounce-0 shadow rays at 1920x1080 --
     path_c = dataclasses.replace(base, **LARGE["C"][1])
-    geo = geo_mod.geometry_pass_bvh(*stress_geo_args(pt, td, path_c, dev), emit_albedo=True)
-    n = w * h
-    idx = torch.arange(n, device=dev)
-    px, py = idx % w, torch.div(idx, w, rounding_mode="floor")
-    state, gx, gy = rng_ops.sample_jitter(px, py, 5, 0, 0)
-    dirs = cam_ops.pixel_rays(px, py, w, h, path_c.fov, jitter_x=0.0 * gx, jitter_y=0.0 * gy,
-                              rotation=cam.rotation)
-    carry = plain_pt.primary_carry(
-        cam.position.expand(n, 3), dirs, state, geo.visibility.reshape(n),
-        geo.world_pos.reshape(n, 3), geo.normal.reshape(n, 3), geo.albedo.reshape(n, 3),
-        light.position, light.color * path_c.light_intensity, path_c, defer_nee_shadow=True)
-    o = carry[0]
-    w_l, s_t, _, mask = carry[6]
-    cap = torch.where(mask, s_t, torch.zeros_like(s_t))
-    k = wf.shadow_segment(o, w_l, cap, mask, td, path_c)
+    rays = path_c_shadow_rays(pt, geo_mod, td, path_c, cam, light, dev)
+    k = wf.shadow_segment(*rays, td, path_c, width=path_c.width)
     t0 = time.perf_counter()
-    p = wf.shadow_segment_plain(o, w_l, cap, mask, td, path_c)
+    p = wf.shadow_segment_plain(*rays, td, path_c)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    print(f"shadow_segment path C {w}x{h}: {int(mask.sum().item())} sampling lanes, "
+    print(f"shadow_segment path C {w}x{h}: {int(rays[3].sum().item())} sampling lanes, "
           f"{int(p.sum().item())} occluded")
     same_bits(f"shadow_segment path C {w}x{h}", k, p)
-    counts = geo_mod.WalkCounts.zeros(n, td)
-    wf.shadow_segment(o, w_l, cap, mask, td, path_c, counts=counts)
-    # per lane: origin, direction and cap (28 B) and the mask read, the flag written
     records.append(record(
         "shadow_segment", "wavefront.cu", "ops/pallas/wavefront.py:487",
-        max_abs_err=float((k != p).any().item()),
-        **kernel_ms(lambda: wf.shadow_segment(o, w_l, cap, mask, td, path_c),
-                    "shadow_segment_kernel"),
-        plain_ms=plain_ms, **walk_bound(counts, 36 * n)))
+        max_abs_err=float((k != p).any().item()), plain_ms=plain_ms,
+        **shadow_segment_fields(wf, geo_mod, td, path_c, rays)))
     print(f"large-scene kernel phase: {time.time() - t_phase:.1f} s", flush=True)
 
 
@@ -1172,9 +1215,11 @@ def visibility_mode(pt, geo_mod, td, cfg, cam, dev, label: str) -> dict:
     n = cfg.width * cfg.height
     if bvh:
         counts = geo_mod.WalkCounts.zeros(n, td)
-        geo_mod.visibility_pass(*args, counts=counts)
+        lanes = torch.zeros(4, dtype=torch.int64, device=td.lut.device)
+        geo_mod.visibility_pass(*args, counts=counts, lanes=lanes)
         committed = torch.unique(k.visibility[k.visibility > 0]).numel()
-        fields = dict(walk_bound(counts, 20 * n + 224 + 36 * committed), committed_tris=committed)
+        fields = dict(walk_bound(counts, 20 * n + 224 + 36 * committed), committed_tris=committed,
+                      **walk_lane_fields(lanes, counts, n))
     else:
         t = td.num_triangles
         fields = bound(20 * n + 224 + 168 * t, TRI_TEST_OPS * t * n)
@@ -1562,7 +1607,7 @@ def main() -> int:
              "library_ms", "modes", "ns_per_iter", "plain_ns_per_iter", "iters", "launch_ms",
              "note"]
     order += ["tri_tests", "box_tests", "node_rows_read", "tri_rows_read", "committed_tris",
-              "live_rays", "lane_eff"]
+              "live_rays", "lane_eff", "steps_per_ray"]
     print(json.dumps({"modelled_not_measured_lane_eff_of_earlier_designs": MODELLED}))
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in records]}))
     print(card)

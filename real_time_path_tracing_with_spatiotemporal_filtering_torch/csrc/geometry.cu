@@ -4,12 +4,18 @@
 // _geometry_kernel
 // (real_time_path_tracing_with_spatiotemporal_filtering_tpu/ops/pallas/geometry.py:116);
 // geometry_bvh_kernel replaces _geometry_clustered_kernel
-// (ops/pallas/geometry.py:388 there), its streamed Morton-cluster walk for
-// large scenes, with an LBVH walk per pixel (bvh.cuh). The BVH kernel is
-// bounded by the walk's latency, not by bytes or arithmetic: on 32,768
-// triangles a primary ray visits ~11 nodes (22 box tests) and tests ~1
-// triangle, each a dependent load from the L2-resident tables, and writes
-// 44 bytes.
+// (ops/pallas/geometry.py:388 there), its streamed Morton-cluster walk of a
+// tile of rays for large scenes, with an LBVH walk per pixel (bvh.cuh). The
+// BVH kernel is bounded by the walk's latency, not by bytes or arithmetic:
+// on 32,768 triangles a primary ray visits ~11 nodes (22 box tests) and
+// tests ~1 triangle, each step a chain of dependent loads and compares on
+// the L2-resident tables, and writes 44 bytes. So it wants warps in flight
+// and lanes that step together: a warp traces an 8x4 tile of pixels, whose
+// walks agree more than a 16x2 strip's (their lanes step together 0.905 of
+// the time on path A, against 0.874), and the registers are capped so that
+// 48 warps an SM hide the latency, not 32. A walk shared by the warp (one
+// node for all lanes) measured slower: primary rays already step together,
+// and the union of their walks is longer than the longest (PERF.md).
 //
 // geometry_kernel:
 // One thread per pixel traces the center primary ray against every
@@ -203,28 +209,44 @@ __global__ void geometry_kernel(const float* __restrict__ table, int num_tris,
   geometry_epilogue<kVisOnly>(x, y, width, height, prm, h, world, tv, o);
 }
 
+// The LBVH kernel's tiles: a warp traces kWarpW x kWarpH pixels, a block
+// kBlockWarpsX x kBlockWarpsY warps, at least kBvhMinBlocks blocks an SM.
+constexpr int kWarpW = 8, kWarpH = 4, kBlockWarpsX = 2, kBlockWarpsY = 4;
+constexpr int kBvhBlock = 32 * kBlockWarpsX * kBlockWarpsY, kBvhMinBlocks = 6;
+constexpr int kBlockW = kWarpW * kBlockWarpsX, kBlockH = kWarpH * kBlockWarpsY;
+
 // The LBVH kernel (large scenes): the walk commits (t, u, v, prim) only;
 // the committed triangle's position, normal and vertices are read once
 // from global memory after it. Under kCount, ``counts`` (2, H*W) receives
 // each pixel's triangle and box tests, and seen_node / seen_tri a 1 for
-// every node row and triangle-test row a walk read.
+// every node row and triangle-test row a walk read; ``lanes`` (4,), when
+// not null, the lane counts (flush_lanes): lanes with a pixel and warps,
+// then the walk's lanes and steps.
 template <bool kCount, bool kVisOnly>
-__global__ void geometry_bvh_kernel(BvhScene sc, const float* __restrict__ lut_normals,
-                                    const float* __restrict__ lut,
-                                    const float* __restrict__ lut_prev,
-                                    const float* __restrict__ params, int width, int height,
-                                    float slope, float t_max, float eps, GeoOut o,
-                                    int* __restrict__ counts, int* seen_node, int* seen_tri) {
+__global__ void __launch_bounds__(kBvhBlock, kBvhMinBlocks)
+    geometry_bvh_kernel(BvhScene sc, const float* __restrict__ lut_normals,
+                        const float* __restrict__ lut, const float* __restrict__ lut_prev,
+                        const float* __restrict__ params, int width, int height, float slope,
+                        float t_max, float eps, GeoOut o, int* __restrict__ counts,
+                        int* seen_node, int* seen_tri, unsigned long long* __restrict__ lanes) {
   __shared__ float prm[56];
   stage_params(prm, params);
   __syncthreads();
 
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width || y >= height) return;
-  V3 d = pixel_ray(x, y, 0.0f, 0.0f, width, height, slope, prm + 3);
+  const int warp = threadIdx.x / 32, lane = (int)lane_id();
+  int x = blockIdx.x * kBlockW + warp % kBlockWarpsX * kWarpW + lane % kWarpW;
+  int y = blockIdx.y * kBlockH + warp / kBlockWarpsX * kWarpH + lane / kWarpW;
+  const bool in_image = x < width && y < height;
   Counts c = {0, 0, seen_node, seen_tri};
-  Hit h = bvh_nearest_hit<kCount>(sc, load3(prm), d, t_max, eps, c);
+  unsigned pixel_lanes = 0, warps = 0;
+  Hit h = {false, 0, t_max, 0.0f, 0.0f};
+  if (in_image) {
+    V3 d = pixel_ray(x, y, 0.0f, 0.0f, width, height, slope, prm + 3);
+    if (kCount) count_lanes(pixel_lanes, warps);
+    h = bvh_nearest_hit<kCount>(sc, load3(prm), d, t_max, eps, c);
+  }
+  if (kCount && lanes != nullptr) flush_lanes(lanes, pixel_lanes, warps, c);
+  if (!in_image) return;
   V3 world = {0.0f, 0.0f, 0.0f};
   TriVerts tv = {};
   if (h.hit) {
@@ -246,7 +268,7 @@ __global__ void geometry_bvh_kernel(BvhScene sc, const float* __restrict__ lut_n
 }
 
 using BvhFn = void (*)(BvhScene, const float*, const float*, const float*, const float*, int,
-                       int, float, float, float, GeoOut, int*, int*, int*);
+                       int, float, float, float, GeoOut, int*, int*, int*, unsigned long long*);
 
 template <bool kVisOnly>
 BvhFn pick_bvh(bool count) {
@@ -279,15 +301,15 @@ extern "C" int ptsf_geometry_bvh(const float* nodes, const float* tris, const fl
                                  float* vis, float* depth, float* normal, float* lam,
                                  int* prev_y, int* prev_x, float* world, const float* albedo,
                                  float* out_albedo, int vis_only, int* counts, int* seen_node,
-                                 int* seen_tri, cudaStream_t stream) {
-  dim3 block(16, 16);
-  dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
+                                 int* seen_tri, unsigned long long* lanes,
+                                 cudaStream_t stream) {
+  dim3 grid((width + kBlockW - 1) / kBlockW, (height + kBlockH - 1) / kBlockH);
   BvhScene sc = {reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(tris),
                  v0, e1, e2, nullptr, nullptr};
   GeoOut o = {vis, depth, normal, lam, prev_y, prev_x, world, albedo, out_albedo};
   bool count = counts != nullptr;
   BvhFn kernel = vis_only ? pick_bvh<true>(count) : pick_bvh<false>(count);
-  kernel<<<grid, block, 0, stream>>>(sc, lut_normals, lut, lut_prev, params, width, height, slope,
-                                     t_max, eps, o, counts, seen_node, seen_tri);
+  kernel<<<grid, kBvhBlock, 0, stream>>>(sc, lut_normals, lut, lut_prev, params, width, height,
+                                         slope, t_max, eps, o, counts, seen_node, seen_tri, lanes);
   return (int)cudaGetLastError();
 }

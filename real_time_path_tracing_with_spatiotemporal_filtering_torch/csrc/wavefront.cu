@@ -53,11 +53,20 @@
 // the live list by that key made the segments themselves slower on paths A
 // and B, before counting the sort (segment_sort_ab.py), so none is done.
 //
-// shadow_segment: an any-hit walk per lane, capped at the sphere-entry
-// distance (ops/pathtrace's deferred NEE sample of the G-buffer-seeded
-// bounce 0), writing one int32 "occluded" plane. Inputs: 7 float planes
-// (origin, light-sample direction, cap) and the int32 mask of lanes that
-// sampled the light.
+// shadow_segment: an any-hit walk per lane of ``mask``, capped at the
+// sphere-entry distance (ops/pathtrace's deferred NEE sample of the
+// G-buffer-seeded bounce 0), writing one int32 "occluded" plane (0 outside
+// the mask), one thread a lane. Its inputs are read where
+// ops/cuda/wavefront._seed_from_gbuffer made them: origins and light-sample
+// directions (N, 3), caps (N,) and the bool mask (N,). Like the geometry
+// kernel's, its walk is bounded by latency, so what counts is warps in
+// flight and lanes that step together. The rays of a frame are taken 8x4
+// pixels a warp, as the geometry kernel takes them (their walks agree more
+// than a row of 32's); a list of rays in no frame order, 32 consecutive
+// lanes a warp. Queueing the lanes of the mask into full warps, with or
+// without refilling a lane when its walk ends, left fewer warps to hide the
+// walks' latency and measured slower, as did a walk shared by the warp
+// (these rays diverge: the union of a warp's walks is ~3x a walk; PERF.md).
 
 #include "bounce.cuh"
 
@@ -199,25 +208,51 @@ __global__ void __launch_bounds__(kBlock)
   if (kCount && lanes != nullptr) flush_lanes(lanes, loop_lanes, loop_steps, c);
 }
 
+// The rays of shadow_segment, read in place; ``width`` > 0: they are a
+// frame's pixels in raster order, ``width`` to a row (0: any order).
+struct ShadowArgs {
+  const float* origins;       // (n, 3)
+  const float* dirs;          // (n, 3)
+  const float* cap;           // (n,)
+  const unsigned char* mask;  // (n,) bool
+  int n, width;
+  float t_max, eps;
+  int* occluded;
+};
+
+constexpr int kShadowTileW = 8, kShadowTileH = 4;  // a warp's pixels in a frame
+
+// Under kCount, ``counts`` (2, n) receives each lane's triangle and box
+// tests, and seen_node / seen_tri the rows read; ``lanes`` (4,), when not
+// null, the lane counts (flush_lanes): lanes of the mask and warps, then
+// the walk's lanes and steps.
 template <bool kCount>
-__global__ void shadow_segment_kernel(BvhScene sc, const float* __restrict__ planes,
-                                      const int* __restrict__ mask, int n, float t_max, float eps,
-                                      int* __restrict__ occluded, int* __restrict__ counts,
-                                      int* seen_node, int* seen_tri) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (!mask[i]) {
-    occluded[i] = 0;
-    return;
+__global__ void shadow_segment_kernel(BvhScene sc, ShadowArgs a, int* __restrict__ counts,
+                                      int* seen_node, int* seen_tri,
+                                      unsigned long long* __restrict__ lanes) {
+  int i = blockIdx.x * kBlock + threadIdx.x;
+  if (a.width > 0) {  // tile (tx, ty) of the frame's pixels
+    const int warp = i / 32, lane = i % 32, tiles_x = (a.width + kShadowTileW - 1) / kShadowTileW;
+    const int x = warp % tiles_x * kShadowTileW + lane % kShadowTileW;
+    const int y = warp / tiles_x * kShadowTileH + lane / kShadowTileW;
+    i = x < a.width ? y * a.width + x : a.n;  // rows past the last give i >= n
   }
-  V3 o = {planes[i], planes[n + i], planes[2 * n + i]};
-  V3 w = {planes[3 * n + i], planes[4 * n + i], planes[5 * n + i]};
   Counts c = {0, 0, seen_node, seen_tri};
-  occluded[i] = bvh_any_hit_within<kCount>(sc, o, w, planes[6 * n + i], t_max, eps, c) ? 1 : 0;
-  if (kCount) {
-    counts[i] += c.tri;
-    counts[n + i] += c.box;
+  unsigned ray_lanes = 0, warps = 0;
+  if (i < a.n) {
+    bool hit = false;
+    if (a.mask[i] != 0) {
+      if (kCount) count_lanes(ray_lanes, warps);
+      hit = bvh_any_hit_within<kCount>(sc, load3(a.origins + 3 * i), load3(a.dirs + 3 * i),
+                                       a.cap[i], a.t_max, a.eps, c);
+      if (kCount) {
+        counts[i] += c.tri;
+        counts[a.n + i] += c.box;
+      }
+    }
+    a.occluded[i] = hit ? 1 : 0;
   }
+  if (kCount && lanes != nullptr) flush_lanes(lanes, ray_lanes, warps, c);
 }
 
 using SegmentFn = void (*)(BvhTable, const float*, TraceArgs, SegArgs, LiveArgs, float*,
@@ -264,18 +299,23 @@ extern "C" int ptsf_trace_segment(const float* nodes, const float* tris, const f
   return (int)cudaGetLastError();
 }
 
-extern "C" int ptsf_shadow_segment(const float* nodes, const float* tris, const float* planes,
-                                   const int* mask, int n, float t_max, float eps, int* occluded,
+extern "C" int ptsf_shadow_segment(const float* nodes, const float* tris, const float* origins,
+                                   const float* dirs, const float* cap, const unsigned char* mask,
+                                   int n, int width, float t_max, float eps, int* occluded,
                                    int* counts, int* seen_node, int* seen_tri,
-                                   cudaStream_t stream) {
+                                   unsigned long long* lanes, cudaStream_t stream) {
   BvhScene sc = {reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(tris),
                  nullptr, nullptr, nullptr, nullptr, nullptr};
-  if (counts != nullptr) {
-    shadow_segment_kernel<true><<<(n + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
-        sc, planes, mask, n, t_max, eps, occluded, counts, seen_node, seen_tri);
-  } else {
-    shadow_segment_kernel<false><<<(n + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
-        sc, planes, mask, n, t_max, eps, occluded, counts, seen_node, seen_tri);
+  ShadowArgs a = {origins, dirs, cap, mask, n, width, t_max, eps, occluded};
+  long long threads = n;
+  if (width > 0) {
+    const long long rows = n / width;
+    threads = 32LL * ((width + kShadowTileW - 1) / kShadowTileW) *
+              ((rows + kShadowTileH - 1) / kShadowTileH);
   }
+  const int grid = (int)((threads + kBlock - 1) / kBlock);
+  if (grid == 0) return 0;
+  auto kernel = counts != nullptr ? shadow_segment_kernel<true> : shadow_segment_kernel<false>;
+  kernel<<<grid, kBlock, 0, stream>>>(sc, a, counts, seen_node, seen_tri, lanes);
   return (int)cudaGetLastError();
 }

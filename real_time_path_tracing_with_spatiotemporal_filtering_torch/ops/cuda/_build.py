@@ -105,9 +105,10 @@ def build() -> str:
     return out
 
 
-def _declare(lib) -> None:
+def signatures() -> dict:
+    """The argument types of each C entry point of the library, by name."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    signatures = {
+    return {
         # table, num_tris, params, width, height, slope, t_max, eps,
         # vis, depth, normal, lam, prev_y, prev_x, world, albedo,
         # out_albedo (null: no albedo planes), vis_only, stream
@@ -135,8 +136,9 @@ def _declare(lib) -> None:
         # nodes, tris, v0, e1, e2, lut_normals, lut, lut_prev, params, width,
         # height, slope, t_max, eps, vis, depth, normal, lam, prev_y, prev_x,
         # world, albedo, out_albedo (null: none), vis_only, counts,
-        # seen_node, seen_tri (all three null: not counted), stream
-        "ptsf_geometry_bvh": [p] * 9 + [i, i, f, f, f] + [p] * 9 + [i] + [p] * 3 + [p],
+        # seen_node, seen_tri (all three null: not counted), lanes (null:
+        # not counted), stream
+        "ptsf_geometry_bvh": [p] * 9 + [i, i, f, f, f] + [p] * 9 + [i] + [p] * 4 + [p],
         # nodes, tris, v0, e1, e2, normals, albedo, params, n, width, height,
         # frame, batch, sample, seg, slope, aa_sigma, ray_eps, t_max, eps,
         # light_r, light_r2, first_dim, light_through_walls, nee, rr_start,
@@ -146,15 +148,20 @@ def _declare(lib) -> None:
         # seen_tri (all three null: not counted), lanes (null: not counted),
         # stream
         "ptsf_trace_segment": [p] * 8 + [i] * 7 + [f] * 8 + [i] * 3 + [f, f] + [p] * 14 + [p],
-        # nodes, tris, planes, mask, n, t_max, eps, occluded, counts,
-        # seen_node, seen_tri, stream
-        "ptsf_shadow_segment": [p, p, p, p, i, f, f, p, p, p, p, p],
+        # nodes, tris, origins, dirs, cap, mask, n, width (0: the rays are
+        # in no frame order), t_max, eps, occluded, counts, seen_node,
+        # seen_tri (all three null: not counted), lanes (null: not
+        # counted), stream
+        "ptsf_shadow_segment": [p] * 6 + [i, i, f, f] + [p] * 5 + [p],
         # the micro-kernels (ops/cuda/micro.py): x, out, ints, floats (null
         # where the kernel has none), iters, rows, cols (vec only), stream
         **{f"ptsf_micro_{k}": [p, p, p, p, i, i, i, p]
            for k in ("scalar", "dynrow", "assemble", "vec", "when", "reduce", "dynwin", "cond")},
     }
-    for name, argtypes in signatures.items():
+
+
+def _declare(lib) -> None:
+    for name, argtypes in signatures().items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

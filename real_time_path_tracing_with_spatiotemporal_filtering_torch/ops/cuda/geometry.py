@@ -193,6 +193,19 @@ def count_pointers(counts: WalkCounts | None, n: int, tri_data) -> tuple:
     return tuple(t.data_ptr() for t in counts)
 
 
+def lane_pointer(lanes: torch.Tensor | None, counts) -> int | None:
+    """The pointer of an LBVH launch's ``lanes`` (null when not counting):
+    a (4,) int64 CUDA tensor to which the counting launch adds its lane
+    counts, the lanes that had a ray and the warps that ran them, then the
+    walks' lanes and warp steps; raises unless it comes with ``counts``."""
+    if lanes is None:
+        return None
+    if counts is None:
+        raise ValueError("lanes are counted only with counts")
+    _build.check_cuda("lanes", lanes, torch.int64, (4,))
+    return lanes.data_ptr()
+
+
 def check_bvh(tri_data) -> None:
     """Raise unless the scene's LBVH tables and attribute arrays are what
     the LBVH kernels read: contiguous float32 CUDA tensors of the scene's
@@ -212,11 +225,12 @@ def check_bvh(tri_data) -> None:
 def geometry_pass_bvh(tri_data, lut_prev, camera_pos, rotation, light_pos,
                       light_pos_prev, light_color, light_color_prev, view, proj,
                       view_prev, proj_prev, cfg, emit_albedo: bool = False,
-                      counts=None) -> GeometryBuffers:
+                      counts=None, lanes=None) -> GeometryBuffers:
     """:func:`geometry_pass` through the LBVH (one kernel launch; plain
     version for CPU tensors). ``counts``: optional :class:`WalkCounts` of
     H*W rays that receives each pixel's triangle tests and box tests and
-    marks the rows read, for counting the work of a launch."""
+    marks the rows read, for counting the work of a launch; with it,
+    ``lanes`` (optional) accumulates the lane counts (:func:`lane_pointer`)."""
     args = (tri_data, lut_prev, camera_pos, rotation, light_pos,
             light_pos_prev, light_color, light_color_prev, view, proj,
             view_prev, proj_prev, cfg)
@@ -245,17 +259,18 @@ def geometry_pass_bvh(tri_data, lut_prev, camera_pos, rotation, light_pos,
         out.albedo.data_ptr() if emit_albedo else None,
         0,
         *count_ptrs,
+        lane_pointer(lanes, counts),
     )
     return out
 
 
 def visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=None,
-                    counts=None) -> gbuffer.GBuffer:
+                    counts=None, lanes=None) -> gbuffer.GBuffer:
     """The G-buffer of ops/gbuffer.visibility_pass (visibility, world
     position, depth) in one launch of the geometry kernels' visibility-only
     mode: the dense kernel below ops/intersect.BVH_MIN_TRIANGLES, the LBVH
-    kernel from there on (plain version for CPU tensors). ``counts``: as in
-    :func:`geometry_pass_bvh`, LBVH scenes only."""
+    kernel from there on (plain version for CPU tensors). ``counts`` and
+    ``lanes``: as in :func:`geometry_pass_bvh`, LBVH scenes only."""
     if camera_pos.device.type == "cpu":
         return gbuffer.visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=rotation)
     if rotation is None:
@@ -282,11 +297,11 @@ def visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=None,
             planes.v0.data_ptr(), planes.e1.data_ptr(), planes.e2.data_ptr(),
             tri_data.lut_normals.data_ptr(), tri_data.lut.data_ptr(), tri_data.lut.data_ptr(),
             params.data_ptr(), w, h, *geo_args, *outputs, None, None, 1,
-            *count_pointers(counts, w * h, tri_data),
+            *count_pointers(counts, w * h, tri_data), lane_pointer(lanes, counts),
             label="geometry_bvh[visibility]",
         )
     else:
-        if counts is not None:
+        if counts is not None or lanes is not None:
             raise ValueError("counts are taken on LBVH scenes only")
         table = _dense_table(tri_data, tri_data.lut)
         _build.launch(

@@ -41,6 +41,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import 
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.geometry import (
     check_bvh,
     count_pointers,
+    lane_pointer,
 )
 
 
@@ -175,10 +176,7 @@ class SegmentLaunches:
         _build.check_cuda("rays.state", rays.state, torch.int32, (n,))
         _build.check_cuda("rays.alive", rays.alive, torch.int32, (n,))
         count_ptrs = count_pointers(counts, n, tri_data)
-        if lanes is not None:
-            if counts is None:
-                raise ValueError("lanes are counted only with counts")
-            _build.check_cuda("lanes", lanes, torch.int64, (4,))
+        lane_ptr = lane_pointer(lanes, counts)
         if lists is None:
             lists = live_lists(n, rays.f.device)
         elif lists.capacity < n:
@@ -228,7 +226,7 @@ class SegmentLaunches:
         )
         self._tail = (
             rays.f.data_ptr(), rays.state.data_ptr(), rays.alive.data_ptr(),
-            *count_ptrs, None if lanes is None else lanes.data_ptr(),
+            *count_ptrs, lane_ptr,
         )
 
     def __call__(self, seg: int, batch: int, sample: int, first: bool) -> None:
@@ -272,27 +270,36 @@ def shadow_segment_plain(origins, dirs, cap, mask, tri_data, cfg) -> torch.Tenso
                                eps=cfg.intersect_eps, mask=mask)
 
 
-def shadow_segment(origins, dirs, cap, mask, tri_data, cfg, counts=None) -> torch.Tensor:
+def shadow_segment(origins, dirs, cap, mask, tri_data, cfg, counts=None, lanes=None,
+                   width=None) -> torch.Tensor:
     """Whether each shadow ray of ``mask`` meets a triangle at t <= ``cap``
-    (origins/dirs (N, 3), cap (N,), mask (N,) bool; False outside the
-    mask). One kernel launch; plain version for CPU tensors. ``counts`` as
-    in :func:`trace_segment`."""
+    (origins/dirs (N, 3) float32, cap (N,) float32, mask (N,) bool, all
+    contiguous and read in place; False outside the mask). One kernel
+    launch; plain version for CPU tensors. ``width``: the rays are a
+    frame's pixels in raster order, ``width`` to a row (the kernel then
+    walks them 8x4 pixels a warp); None: any order. ``counts`` as in
+    :func:`trace_segment`; with it, ``lanes`` (optional) accumulates the
+    lane counts (ops/cuda/geometry.lane_pointer): lanes of the mask and
+    warps, then the walk's lanes and steps."""
     if origins.device.type == "cpu":
         return shadow_segment_plain(origins, dirs, cap, mask, tri_data, cfg)
     n = mask.shape[0]
-    planes = torch.cat([origins.T, dirs.T, cap[None]]).contiguous()
-    mask_i = mask.to(torch.int32).contiguous()
-    _build.check_cuda("planes", planes, torch.float32, (7, n))
-    _build.check_cuda("mask", mask_i, torch.int32, (n,))
+    for name, t, dtype, shape in (("origins", origins, torch.float32, (n, 3)),
+                                  ("dirs", dirs, torch.float32, (n, 3)),
+                                  ("cap", cap, torch.float32, (n,)),
+                                  ("mask", mask, torch.bool, (n,))):
+        _build.check_cuda(name, t, dtype, shape)
+    if width is not None and (width <= 0 or n % width):
+        raise ValueError(f"{n} rays are not rows of {width}")
     count_ptrs = count_pointers(counts, n, tri_data)
     check_bvh(tri_data)
     occluded = torch.empty(n, dtype=torch.int32, device=origins.device)
     _build.launch(
         "ptsf_shadow_segment",
         tri_data.bvh.nodes.data_ptr(), tri_data.bvh.tris.data_ptr(),
-        planes.data_ptr(), mask_i.data_ptr(), n,
+        origins.data_ptr(), dirs.data_ptr(), cap.data_ptr(), mask.data_ptr(), n, width or 0,
         float(np.float32(cfg.t_max)), float(np.float32(cfg.intersect_eps)),
-        occluded.data_ptr(), *count_ptrs,
+        occluded.data_ptr(), *count_ptrs, lane_pointer(lanes, counts),
     )
     return occluded != 0
 
@@ -319,7 +326,8 @@ def _seed_from_gbuffer(rays: RayState, primary, batch, sample, tri_data, camera_
     if cfg.nee:
         w_l, s_t, bank, mask = carry[6]
         cap = torch.where(mask, s_t, torch.zeros_like(s_t))
-        lit = mask & ~shadow_segment(o, w_l, cap, mask, tri_data, cfg, counts)
+        lit = mask & ~shadow_segment(o, w_l, cap, mask, tri_data, cfg, counts,
+                                     width=cfg.width if pixels is None else None)
         result = result + torch.where(lit[:, None], bank, torch.zeros_like(bank))
     rays.store(o, d, accum, result, state, alive)
 

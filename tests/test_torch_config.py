@@ -166,6 +166,48 @@ def test_nvcc_flags():
     }
 
 
+def _c_entry_points(source: str) -> dict:
+    """The argument types of each ``extern "C"`` entry point of ``source``,
+    read from its definition: pointers and the stream as c_void_p, int as
+    c_int, float as c_float."""
+    import ctypes
+    import re
+
+    with open(source) as f:
+        text = f.read()
+    out = {}
+    for m in re.finditer(r'extern "C" int (ptsf_\w+)\(([^)]*)\)', text):
+        kinds = []
+        for param in m.group(2).split(","):
+            words = param.split()
+            if "*" in param or words[0] == "cudaStream_t":
+                kinds.append(ctypes.c_void_p)
+            else:
+                kinds.append({"int": ctypes.c_int, "float": ctypes.c_float}[words[0]])
+        out[m.group(1)] = kinds
+    return out
+
+
+@pytest.mark.parametrize("source", sorted(os.path.basename(s) for s in _build.sources()))
+def test_c_entry_points_declared(source):
+    """The ctypes declaration of every C entry point in a kernel source
+    matches its definition, argument for argument (a mismatch shows only as
+    a wrong launch on the card)."""
+    path = next(s for s in _build.sources() if os.path.basename(s) == source)
+    defined = _c_entry_points(path)
+    assert defined, f"{source} defines no entry point"
+    declared = _build.signatures()
+    for name, kinds in defined.items():
+        assert declared.get(name) == kinds, name
+
+
+def test_every_declared_entry_point_is_defined():
+    defined = {}
+    for source in _build.sources():
+        defined.update(_c_entry_points(source))
+    assert set(_build.signatures()) == set(defined)
+
+
 def test_cpu_launches_nothing():
     """On CPU tensors the wrappers run the plain version and count no
     launch."""

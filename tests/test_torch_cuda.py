@@ -276,25 +276,54 @@ def _orbit(i, dev):
     return Camera.orbit([0.0, 1.0, 0.0], 6.0, 0.01 * i, 1.0, device=dev)
 
 
-def test_bvh_geometry_kernel_equals_dense_kernel(dev):
-    """At 288 triangles both kernels run; every plane is bit-equal, and the
-    counting launch gives the same planes."""
+# The LBVH geometry kernel's frames: the reference's, one that splits
+# unevenly into its 16x16 blocks of 8x4 warp tiles, and one smaller than a
+# block, with partial warp tiles on both axes.
+GEOMETRY_BVH_SIZES = [(1000, 800), (1003, 797), (37, 13)]
+
+
+def _check_walk_lanes(lanes, rays):
+    """The lane counts of an LBVH geometry or shadow launch over ``rays``
+    rays (lanes with a ray, warps; walk lanes, walk steps) are consistent:
+    every ray tested the root's boxes, and no count exceeds 32 lanes a
+    warp step."""
+    ray_lanes, warps, walk_lanes, walk_steps = (int(v) for v in lanes.tolist())
+    assert ray_lanes == rays and 0 < ray_lanes <= 32 * warps
+    assert rays <= walk_lanes <= 32 * walk_steps
+
+
+@pytest.mark.parametrize("size", GEOMETRY_BVH_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_bvh_geometry_kernel_equals_dense_kernel(dev, size):
+    """At 288 triangles both kernels run; every plane of the LBVH kernel is
+    bit-equal to the dense kernel's and to the plain version's, in both
+    modes, and the counting launch gives the same planes."""
+    cfg = dataclasses.replace(CFG, width=size[0], height=size[1])
     td = _stress(3, dev)
-    args = (td, td.lut) + _geometry_args(dev)[2:]
+    args = (td, td.lut) + _geometry_args(dev, cfg)[2:]
     _build.LAUNCHES.clear()
     dense = cuda_geometry.geometry_pass(*args, emit_albedo=True)
-    counts = cuda_geometry.WalkCounts.zeros(CFG.height * CFG.width, td)
+    counts = cuda_geometry.WalkCounts.zeros(cfg.height * cfg.width, td)
+    lanes = torch.zeros(4, dtype=torch.int64, device=dev)
     bvh = cuda_geometry.geometry_pass_bvh(*args, emit_albedo=True)
-    counted = cuda_geometry.geometry_pass_bvh(*args, emit_albedo=True, counts=counts)
+    counted = cuda_geometry.geometry_pass_bvh(*args, emit_albedo=True, counts=counts, lanes=lanes)
     assert _build.LAUNCHES["geometry_bvh"] == 2
+    plain = cuda_geometry.geometry_pass_plain(*args, emit_albedo=True)
     for name in dense._fields:
         assert torch.equal(getattr(dense, name), getattr(bvh, name)), name
         assert torch.equal(getattr(counted, name), getattr(bvh, name)), name
+        assert torch.equal(getattr(plain, name), getattr(bvh, name)), name
     assert counts.tests[1].min().item() >= 2  # every pixel tests the root's two boxes
     assert counts.nodes[0].item() == 1 and counts.tris.sum().item() > 0
     # the rows read hold every committed triangle
     committed = bvh.visibility[bvh.visibility > 0].to(torch.int64) - 1
     assert (counts.tris[committed] == 1).all()
+    _check_walk_lanes(lanes, cfg.width * cfg.height)
+    # the visibility-only mode: the same planes
+    view, proj = args[8], args[9]
+    vis = cuda_geometry.visibility_pass(td, args[2], view, proj, cfg, rotation=args[3])
+    assert _build.LAUNCHES["geometry_bvh[visibility]"] == 1
+    for name in vis._fields:
+        assert torch.equal(getattr(vis, name), getattr(dense, name)), name
 
 
 @pytest.mark.parametrize(
@@ -339,20 +368,83 @@ def test_trace_segment_equals_plain(dev):
     assert counts.nodes.sum().item() > 0 and counts.tris.sum().item() > 0
 
 
-def test_shadow_segment_equals_plain(dev):
+def _shadow_case(case, dev):
+    """(tri_data, cfg, origins, dirs, cap, mask, width) of a shadow_segment
+    case."""
     cfg = RenderConfig()
     td = _stress(32, dev)
+    if case == "path_c":  # path C's bounce-0 shadow rays (G-buffer seed, NEE), partial tiles
+        from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
+            camera as cam_ops,
+            pathtrace,
+            rng as rng_ops,
+        )
+
+        cfg = RenderConfig(width=157, height=101, max_bounces=8, rr_start_bounce=2,
+                           gbuffer_primary=True, nee=True)
+        cam, light = _orbit(3, dev), Light.default(dev)
+        view, proj = frame.camera_matrices(cam, cfg)
+        geo = cuda_geometry.geometry_pass_bvh(td, td.lut, cam.position, cam.rotation,
+                                              light.position, light.position, light.color,
+                                              light.color, view, proj, view, proj, cfg,
+                                              emit_albedo=True)
+        n = cfg.width * cfg.height
+        idx = torch.arange(n, device=dev)
+        px, py = idx % cfg.width, torch.div(idx, cfg.width, rounding_mode="floor")
+        state, gx, gy = rng_ops.sample_jitter(px, py, 5, 0, 0)
+        dirs = cam_ops.pixel_rays(px, py, cfg.width, cfg.height, cfg.fov, jitter_x=0.0 * gx,
+                                  jitter_y=0.0 * gy, rotation=cam.rotation)
+        carry = pathtrace.primary_carry(
+            cam.position.expand(n, 3), dirs, state, geo.visibility.reshape(n),
+            geo.world_pos.reshape(n, 3), geo.normal.reshape(n, 3), geo.albedo.reshape(n, 3),
+            light.position, light.color * cfg.light_intensity, cfg, defer_nee_shadow=True)
+        w_l, s_t, _, mask = carry[6]
+        cap = torch.where(mask, s_t, torch.zeros_like(s_t))
+        return td, cfg, carry[0], w_l, cap, mask, cfg.width
+    if case == "one_triangle":  # the ceiling's larger triangle
+        from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import procedural
+
+        verts, idx = procedural.cornell_box()
+        td = precompute_triangle_data(Scene.from_arrays(verts, idx[3:4]), dev)
     g = torch.Generator(device=dev).manual_seed(0)
-    n = 100_000
-    o = torch.rand((n, 3), generator=g, device=dev) * 1.8 - torch.tensor([0.9, -0.05, 0.9], device=dev)
+    n = 1_017 if case == "partial_warp" else 100_000
+    o = torch.rand((n, 3), generator=g, device=dev) * 1.8 - torch.tensor([0.9, -0.05, 0.9],
+                                                                         device=dev)
     d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g, device=dev), dim=-1)
     cap = torch.rand(n, generator=g, device=dev) * 2.0
     mask = torch.rand(n, generator=g, device=dev) < 0.7
+    if case == "masked_warps":  # a range of warps with no lane to walk, one with every lane
+        mask[256:1024] = False
+        mask[1024:2048] = True
+    return td, cfg, o, d, cap, mask, None
+
+
+@pytest.mark.parametrize("case", ["random", "path_c", "partial_warp", "masked_warps",
+                                  "one_triangle"])
+def test_shadow_segment_equals_plain(dev, case):
+    """The kernel reads its inputs in place and equals the plain any-hit walk
+    bit for bit: random rays (some with the counting launch), path C's
+    coherent rays of a frame (8x4 pixels a warp, partial tiles on both
+    axes), a ray count not a multiple of 32, warps whose lanes are all
+    outside or all inside the mask, a one-triangle scene."""
+    td, cfg, o, d, cap, mask, width = _shadow_case(case, dev)
     _build.LAUNCHES.clear()
-    got = cuda_wavefront.shadow_segment(o, d, cap, mask, td, cfg)
+    got = cuda_wavefront.shadow_segment(o, d, cap, mask, td, cfg, width=width)
     assert _build.LAUNCHES["shadow_segment"] == 1
     want = cuda_wavefront.shadow_segment_plain(o, d, cap, mask, td, cfg)
     assert torch.equal(got, want) and want.any() and (mask & ~want).any()
+    if case == "random":
+        counts = cuda_geometry.WalkCounts.zeros(mask.shape[0], td)
+        lanes = torch.zeros(4, dtype=torch.int64, device=dev)
+        counted = cuda_wavefront.shadow_segment(o, d, cap, mask, td, cfg, counts=counts,
+                                                lanes=lanes)
+        assert torch.equal(counted, want)
+        assert (counts.tests[1][~mask] == 0).all() and (counts.tests[1][mask] >= 2).all()
+        _check_walk_lanes(lanes, int(mask.sum().item()))
+        with pytest.raises(ValueError, match="bool"):
+            cuda_wavefront.shadow_segment(o, d, cap, mask.to(torch.int32), td, cfg)
+        with pytest.raises(ValueError, match="contiguous"):
+            cuda_wavefront.shadow_segment(o.T.contiguous().T, d, cap, mask, td, cfg)
 
 
 @pytest.mark.parametrize(
