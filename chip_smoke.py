@@ -12,7 +12,14 @@ filtering_torch/csrc`` with nvcc, then:
   NEE / Russian roulette / several samples / truncate_radiance, the
   geometry kernel's albedo planes) at 1920x1080; both a-trous kernels at
   every stride k = 1..9, and timed apart at k = 1, 5 and 9 (their records'
-  ``modes``);
+  ``modes``); both blends on a frame's own backprojection (the orbit
+  camera stepping one frame; the records' ``ms``) and on a random one (a
+  mode);
+- checks the dense geometry kernel, whose warps cull the triangle table per
+  8x4 tile, bit for bit in both modes, with and without the albedo planes,
+  at three camera poses (default, orbit, near a wall), four sizes and 32,
+  128 and 288 triangles, its counted tests and survivors against the
+  cull's plain twin (ops/tilecull.py), and bounds it by the work counted;
 - checks the kernel route against the repository's golden images;
 - checks the large-scene kernels (the LBVH geometry kernel, the segment
   tracer and the shadow segment) against their plain versions at 1920x1080
@@ -139,6 +146,7 @@ LARGE_PER_FRAME = {
 # per second and float32 operations per second outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+L2_BYTES = 50 * 2**20
 # Floating-point operations counted per unit of work (transcendentals count
 # as one): a ray/triangle test (six 3-term dot products, t, u, v, u + v;
 # csrc/common.cuh tri_test), one a-trous pixel (9 taps), one
@@ -184,6 +192,22 @@ def kernel_ms(fn, kernel: str, calls: int = 20, warmup: int = 2, mean: bool = Fa
         raise PhaseError(f"{kernel} was not launched under the profiler")
     ms = sum(launches) / len(launches) if mean else statistics.median(launches)
     return dict(ms=ms, call_ms=time_fn(fn, iters=calls, warmup=warmup) * calls / len(launches))
+
+
+def from_hbm(fn, inputs: tuple):
+    """``fn(*inputs)`` to time with its inputs read from HBM: each call
+    takes the next of enough copies of ``inputs`` (together more than twice
+    the L2) that the launches between two calls on one copy have moved it
+    out of L2, as the frame's other kernels move out a kernel's inputs.
+    Without it, inputs under the L2's size stay there from one timed launch
+    to the next, and the kernel beats the HBM rate of its bound."""
+    import itertools
+
+    nbytes = sum(x.numel() * x.element_size() for x in inputs)
+    copies = [inputs] + [tuple(x.clone() for x in inputs)
+                         for _ in range(-(-2 * L2_BYTES // nbytes))]
+    turn = itertools.cycle(copies)
+    return lambda: fn(*next(turn))
 
 
 def same_bits(label: str, a, b) -> float:
@@ -290,10 +314,80 @@ def trace_lane_eff(pt_mod, td, cam, light, frame_idx, cfg, label: str) -> dict:
     return dict(bounce_loop=loop, triangle_loops=walk)
 
 
-def geometry_bound(cfg, t: int, albedo: bool = False) -> dict:
-    per_pixel = 44 + (12 if albedo else 0)
-    return bound(per_pixel * cfg.width * cfg.height + 168 * t + (12 * t if albedo else 0),
-                 TRI_TEST_OPS * t * cfg.width * cfg.height)
+# The dense geometry kernel (csrc/geometry.cu geometry_kernel), counted from
+# its code: one pixel's ray (pixel_ray) and the epilogue of a hit pixel
+# (hit_position 12; depth 15; the gradient's normal 25, barycentric solve and
+# recombination 107, two Phong evaluations 154, lambda 25; the
+# backprojection's solve, recombination, projection and clamps 145), 27 of it
+# in the visibility-only mode. The tile cull is this design's own overhead,
+# not work the G-buffer needs, so it stays out of the bound and is reported
+# beside it: the cull of one triangle (outside_tile: v0 + e1, v0 + e2 and
+# three v - o, 15; the three-term absolute sums of v0, e1, e2 and the scale,
+# 19; each vertex's margin, 21; four planes of three dot products, products,
+# negations and compares, and their ands and ors, 108) and the frustum of one
+# warp tile (tile_frustum: four screen coordinates 20, four edges 28, four
+# cross products 36, their orientation 36, four lengths 24; pix and |o|_1, 7).
+CULL_OPS = 163
+FRUSTUM_OPS = 151
+RAY_OPS = 39
+EPILOGUE_OPS = 483
+VIS_EPILOGUE_OPS = 27
+
+
+def dense_geometry_bound(cfg, t: int, vis, tests: int, albedo: bool = False,
+                         vis_only: bool = False) -> dict:
+    """The bound of one dense geometry launch that made ``tests`` triangle
+    tests: the output planes (44 B a pixel, 56 with the albedo planes, 20 in
+    the visibility-only mode), the 56 parameters and the table (168 B a
+    triangle, 12 more with albedo) moved once; the ray of each pixel, the
+    tests and the epilogue of each hit pixel (``vis`` > 0). ``cull_ops``:
+    the operations of the kernel's tile cull, every triangle of every warp
+    tile and the tile's frustum, which explain its time and are no part of
+    the bound."""
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import tilecull
+
+    w, h = cfg.width, cfg.height
+    n = w * h
+    rows, cols = tilecull.tile_grid(cfg)
+    hits = int((vis > 0).sum().item())
+    per_pixel = 20 if vis_only else 44 + (12 if albedo else 0)
+    nbytes = per_pixel * n + 224 + (168 + (12 if albedo else 0)) * t
+    ops = (TRI_TEST_OPS * tests + RAY_OPS * n
+           + (VIS_EPILOGUE_OPS if vis_only else EPILOGUE_OPS) * hits)
+    return dict(bound(nbytes, ops), tri_tests=tests, tests_per_pixel=tests / n,
+                cull_ops=(CULL_OPS * t + FRUSTUM_OPS) * rows * cols)
+
+
+def dense_geometry_fields(geo_mod, args, cfg, vis_only: bool = False,
+                          albedo: bool = False) -> dict:
+    """The work of one dense geometry launch on ``args`` (geometry_pass's,
+    or visibility_pass's when ``vis_only``) from the kernel's counting
+    launch, and its bound: the tests and survivors a pixel, checked
+    against the cull's plain twin (ops/cuda/geometry.dense_counts_plain)
+    bit for bit. ``bound_ms_untiled``: the bound of every triangle tested
+    for every pixel (the kernel before the cull)."""
+    import torch
+
+    td = args[0]
+    t = td.num_triangles
+    if vis_only:
+        run = lambda **kw: geo_mod.visibility_pass(*args, **kw)
+        cam_pos, rot = args[1], args[5]
+    else:
+        run = lambda **kw: geo_mod.geometry_pass(*args, emit_albedo=albedo, **kw)
+        cam_pos, rot = args[2], args[3]
+    counts = geo_mod.dense_counts(cfg, cam_pos.device)
+    out = run(counts=counts)
+    want = geo_mod.dense_counts_plain(td, cam_pos, rot, cfg)
+    torch.cuda.synchronize()
+    check(torch.equal(counts, want), f"dense geometry counts {t} tris {cfg.width}x{cfg.height}: "
+                                     "tests and survivors equal the cull's plain twin")
+    tests = int(counts[0].sum(dtype=torch.int64).item())
+    fields = dense_geometry_bound(cfg, t, out.visibility, tests, albedo, vis_only)
+    fields["survivors_per_pixel"] = counts[1].double().mean().item()
+    fields["bound_ms_untiled"] = dense_geometry_bound(
+        cfg, t, out.visibility, t * cfg.width * cfg.height, albedo, vis_only)["bound_ms"]
+    return fields
 
 
 def atrous_modes(kernel_fn, plain_fn, name: str, size: str, steps: int,
@@ -366,7 +460,7 @@ def kernel_phase(pt, cuda_ops, dev):
         "geometry", "geometry.cu", "ops/pallas/geometry.py:116", max_abs_err=err,
         **kernel_ms(lambda: geo_mod.geometry_pass(*geo_args), "geometry_kernel"),
         plain_ms=time_fn(lambda: geo_mod.geometry_pass_plain(*geo_args), iters=3),
-        **geometry_bound(cfg, td.num_triangles),
+        **dense_geometry_fields(geo_mod, geo_args, cfg),
     ))
 
     # -- path trace, frame 5, 32 bounces --
@@ -406,26 +500,39 @@ def kernel_phase(pt, cuda_ops, dev):
         lambda k: at_mod.atrous_iteration_plain(color, p.normal, p.depth, k, cfg),
         "atrous_iter", f"{w}x{h}", cfg.wavelet_iterations, bound(40 * h * w, ATROUS_OPS * h * w))))
 
-    # -- temporal blend: random backprojection, fixed and adaptive alpha --
+    # -- temporal blend, fixed and adaptive alpha: a frame's own
+    # backprojection (the record's ms) and a random one --
     prev = torch.tensor(rng.exponential(0.5, (h, w, 3)).astype(np.float32), device=dev)
     lam = torch.tensor(rng.uniform(0, 1, (h, w)).astype(np.float32), device=dev)
-    py = torch.tensor(rng.integers(0, h, (h, w)).astype(np.int32), device=dev)
-    px = torch.tensor(rng.integers(0, w, (h, w)).astype(np.int32), device=dev)
-    err = 0.0
-    for adaptive in (False, True):
-        c = pt.RenderConfig(width=WIDTH, height=HEIGHT, adaptive_alpha=adaptive)
-        for f in (0, 3):
-            a = at_mod.temporal_blend(color, prev, py, px, f, lam, c)
-            b = at_mod.temporal_blend_plain(color, prev, py, px, f, lam, c)
-            torch.cuda.synchronize()
-            err = max(err, same_bits(f"temporal_blend adaptive={adaptive} frame={f}", a, b))
-    records.append(record(
-        "temporal_blend", "atrous.cu", "ops/pallas/atrous.py:278", max_abs_err=err,
-        **kernel_ms(lambda: at_mod.temporal_blend(color, prev, py, px, 3, lam, cfg),
-                    "temporal_blend_kernel"),
-        plain_ms=time_fn(lambda: at_mod.temporal_blend_plain(color, prev, py, px, 3, lam, cfg), iters=5),
-        **bound(48 * h * w, BLEND_OPS * h * w),
-    ))
+    cur_geo, _ = frame_backprojection(pt, geo_mod, cfg, dev)
+    backprojections = {
+        "a frame's backprojection (orbit camera, one frame)": (cur_geo.prev_y, cur_geo.prev_x),
+        "random backprojection": (
+            torch.tensor(rng.integers(0, h, (h, w)).astype(np.int32), device=dev),
+            torch.tensor(rng.integers(0, w, (h, w)).astype(np.int32), device=dev)),
+    }
+    err, modes = 0.0, []
+    for label, (py, px) in backprojections.items():
+        for adaptive in (False, True):
+            c = pt.RenderConfig(width=WIDTH, height=HEIGHT, adaptive_alpha=adaptive)
+            for f in (0, 3):
+                a = at_mod.temporal_blend(color, prev, py, px, f, lam, c)
+                b = at_mod.temporal_blend_plain(color, prev, py, px, f, lam, c)
+                torch.cuda.synchronize()
+                err = max(err, same_bits(f"temporal_blend {label} adaptive={adaptive} "
+                                         f"frame={f}", a, b))
+        modes.append(dict(
+            mode=f"{label}, {w}x{h}, inputs from HBM",
+            **kernel_ms(from_hbm(lambda *x: at_mod.temporal_blend(*x[:4], 3, x[4], cfg),
+                                 (color, prev, py, px, lam)), "temporal_blend_kernel"),
+            plain_ms=time_fn(lambda: at_mod.temporal_blend_plain(color, prev, py, px, 3, lam, cfg),
+                             iters=5),
+            **bound(48 * h * w, BLEND_OPS * h * w)))
+    rec = record("temporal_blend", "atrous.cu", "ops/pallas/atrous.py:278", max_abs_err=err,
+                 ms_is=modes[0]["mode"],
+                 **{k: modes[0][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")})
+    rec["modes"] = modes[1:]
+    records.append(rec)
     return records
 
 
@@ -466,7 +573,7 @@ def svgf_kernel_phase(pt, cuda_ops, dev, records) -> None:
             **kernel_ms(lambda: geo_mod.geometry_pass(*geo_args, emit_albedo=albedo),
                         "geometry_kernel"),
             plain_ms=time_fn(lambda: geo_mod.geometry_pass_plain(*geo_args, emit_albedo=albedo), iters=2),
-            **geometry_bound(cfg, td.num_triangles, albedo)))
+            **dense_geometry_fields(geo_mod, geo_args, cfg, albedo=albedo)))
 
     # -- variance-guided a-trous, k = 1..9, seeded color/var on the real G-buffer --
     rng = np.random.default_rng(SEED + 1)
@@ -478,38 +585,56 @@ def svgf_kernel_phase(pt, cuda_ops, dev, records) -> None:
         "atrous_iter_var", f"{w}x{h}", cfg.wavelet_iterations,
         bound(48 * h * w, ATROUS_VAR_OPS * h * w))))
 
-    # -- ramp blend: random backprojection, both reset modes, adaptive on/off --
+    # -- ramp blend, both reset modes, adaptive on/off: a frame's own
+    # backprojection and consistency classes (the record's ms), and a
+    # random backprojection --
     prev = torch.tensor(rng.exponential(0.5, (h, w, 3)).astype(np.float32), device=dev)
     lam = torch.tensor((rng.uniform(0, 1, (h, w)) ** 3).astype(np.float32), device=dev)
-    py = torch.tensor(rng.integers(0, h, (h, w)).astype(np.int32), device=dev)
-    px = torch.tensor(rng.integers(0, w, (h, w)).astype(np.int32), device=dev)
     prev_age = torch.tensor(rng.integers(0, 40, (h, w)).astype(np.float32), device=dev)
-    cons = {
+    cur_geo, prev_geo = frame_backprojection(pt, geo_mod, cfg, dev)
+    frame_cons = {
+        "id": (prev_geo.visibility, cur_geo.visibility),
+        "normal": (atrous.normal_class(prev_geo.normal, prev_geo.visibility),
+                   atrous.normal_class(cur_geo.normal, cur_geo.visibility)),
+    }
+    random_cons = {
         "id": (torch.tensor(rng.integers(0, 33, (h, w)).astype(np.float32), device=dev),
                p.visibility),
         "normal": (atrous.normal_class(p.normal.flip(1), p.visibility.flip(1)),
                    atrous.normal_class(p.normal, p.visibility)),
     }
-    err = 0.0
-    for mode, (prev_cons, cur_cons) in cons.items():
-        for adaptive in (False, True):
-            c = dataclasses.replace(cfg, ramp_reset_mode=mode, adaptive_alpha=adaptive)
-            for f in (0, 3):
-                args = (color, prev, py, px, f, lam, prev_age, prev_cons, cur_cons, c)
-                a_rgb, a_age = at_mod.temporal_blend_ramp(*args)
-                b_rgb, b_age = at_mod.temporal_blend_ramp_plain(*args)
-                torch.cuda.synchronize()
-                label = f"temporal_blend_ramp mode={mode} adaptive={adaptive} frame={f}"
-                err = max(err, same_bits(f"{label} rgb", a_rgb, b_rgb),
-                          same_bits(f"{label} age", a_age, b_age))
-    ramp_args = (color, prev, py, px, 3, lam, prev_age, *cons["id"], cfg)
-    records.append(record(
-        "temporal_blend_ramp", "atrous.cu", "ops/pallas/atrous.py:278 (ramp=True)",
-        max_abs_err=err,
-        **kernel_ms(lambda: at_mod.temporal_blend_ramp(*ramp_args), "temporal_blend_ramp_kernel"),
-        plain_ms=time_fn(lambda: at_mod.temporal_blend_ramp_plain(*ramp_args), iters=5),
-        **bound(64 * h * w, RAMP_BLEND_OPS * h * w),
-    ))
+    inputs = {
+        "a frame's backprojection (orbit camera, one frame)":
+            ((cur_geo.prev_y, cur_geo.prev_x), frame_cons),
+        "random backprojection": (
+            (torch.tensor(rng.integers(0, h, (h, w)).astype(np.int32), device=dev),
+             torch.tensor(rng.integers(0, w, (h, w)).astype(np.int32), device=dev)), random_cons),
+    }
+    err, modes = 0.0, []
+    for label, ((py, px), cons) in inputs.items():
+        for mode, (prev_cons, cur_cons) in cons.items():
+            for adaptive in (False, True):
+                c = dataclasses.replace(cfg, ramp_reset_mode=mode, adaptive_alpha=adaptive)
+                for f in (0, 3):
+                    args = (color, prev, py, px, f, lam, prev_age, prev_cons, cur_cons, c)
+                    a_rgb, a_age = at_mod.temporal_blend_ramp(*args)
+                    b_rgb, b_age = at_mod.temporal_blend_ramp_plain(*args)
+                    torch.cuda.synchronize()
+                    what = f"temporal_blend_ramp {label} mode={mode} adaptive={adaptive} frame={f}"
+                    err = max(err, same_bits(f"{what} rgb", a_rgb, b_rgb),
+                              same_bits(f"{what} age", a_age, b_age))
+        ramp_args = (color, prev, py, px, 3, lam, prev_age, *cons["id"], cfg)
+        modes.append(dict(
+            mode=f"{label}, {w}x{h}",
+            **kernel_ms(lambda: at_mod.temporal_blend_ramp(*ramp_args),
+                        "temporal_blend_ramp_kernel"),
+            plain_ms=time_fn(lambda: at_mod.temporal_blend_ramp_plain(*ramp_args), iters=5),
+            **bound(64 * h * w, RAMP_BLEND_OPS * h * w)))
+    rec = record("temporal_blend_ramp", "atrous.cu", "ops/pallas/atrous.py:278 (ramp=True)",
+                 max_abs_err=err, ms_is=modes[0]["mode"],
+                 **{k: modes[0][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")})
+    rec["modes"] = modes[1:]
+    records.append(rec)
 
     # -- trace modes at 1080p, frame 5 --
     base = pt.RenderConfig(width=w, height=h)
@@ -932,6 +1057,113 @@ def segment_record_fields(wf, td, cfg, cam, light, frame_idx) -> dict:
     return dict(timing, live_rays=live, lane_eff=lane_eff, **fields)
 
 
+# The dense geometry kernel's cases: camera poses (current, previous), frame
+# sizes (the reference's, bench.py's, one that splits unevenly into 16x16
+# blocks of 8x4 warp tiles, one smaller than a block) and scenes (the
+# Cornell box and its subdivisions up to the kernel's table).
+DENSE_SIZES = ((1000, 800), (1920, 1080), (1003, 797), (37, 13))
+DENSE_SPLITS = {32: None, 128: 2, 288: 3}
+
+
+def dense_poses(pt, dev) -> dict:
+    """(current, previous) cameras: the default camera (the previous 0.5
+    back), the suite's orbit camera at frames 3 and 2, and a camera 0.07
+    from the right wall (x = 1), which it sees at a grazing angle."""
+    import torch
+
+    cam = pt.Camera.default(dev)
+    near = ((0.93, 1.2, 0.6), (0.985, 0.9, -1.0))
+    return {
+        "default": (cam, pt.Camera(cam.position + torch.tensor([0.0, 0.0, 0.5], device=dev),
+                                   cam.rotation)),
+        "orbit": (orbit(pt, 3, dev), orbit(pt, 2, dev)),
+        "near_wall": (pt.Camera.looking_at(*near, device=dev),
+                      pt.Camera.looking_at((0.92, 1.2, 0.62), near[1], device=dev)),
+    }
+
+
+def dense_geometry_args(pt, td, cfg, cams, dev):
+    """geometry_pass's inputs for (current, previous) cameras, the light
+    moved between them."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline import frame
+
+    cam, prev = cams
+    light = pt.Light.default(dev)
+    view, proj = frame.camera_matrices(cam, cfg)
+    view_p, proj_p = frame.camera_matrices(prev, cfg)
+    return (td, td.lut, cam.position, cam.rotation, light.position,
+            light.position + torch.tensor([0.5, 0.0, 0.0], device=dev),
+            light.color, light.color * 0.5, view, proj, view_p, proj_p, cfg)
+
+
+def frame_backprojection(pt, geo_mod, cfg, dev) -> tuple:
+    """The dense geometry kernel's planes of two frames of the Cornell box
+    under the suite's orbit camera stepping one frame (orbit 0 -> 1, and
+    orbit -1 -> 0 before it): (current, previous). The current planes'
+    prev_y / prev_x are the backprojection a frame's blend reads."""
+    td = pt.precompute_triangle_data(pt.Scene.cornell_box(), dev)
+    return tuple(geo_mod.geometry_pass(*dense_geometry_args(
+        pt, td, cfg, (orbit(pt, i, dev), orbit(pt, i - 1, dev)), dev)) for i in (1, 0))
+
+
+def dense_geometry_phase(pt, dev) -> None:
+    """The dense geometry kernel against its plain version, bit for bit on
+    every plane, at every pose of dense_poses, size of DENSE_SIZES and scene
+    of DENSE_SPLITS: the full mode with and without the albedo planes, its
+    counting launch (the planes, and its tests and survivors against the
+    cull's plain twin), and the visibility-only mode."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import (
+        geometry as geo_mod,
+    )
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline import frame
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import procedural
+
+    t_phase = time.time()
+    scenes = {t: pt.precompute_triangle_data(
+        pt.Scene.cornell_box() if s is None else
+        pt.Scene.from_arrays(*procedural.subdivided_cornell(s)), dev)
+        for t, s in DENSE_SPLITS.items()}
+    cases, tests = 0, []
+    for pose, cams in dense_poses(pt, dev).items():
+        for w, h in DENSE_SIZES:
+            cfg = pt.RenderConfig(width=w, height=h)
+            for t, td in scenes.items():
+                label = f"{pose} camera, {w}x{h}, {t} tris"
+                args = dense_geometry_args(pt, td, cfg, cams, dev)
+                counts = geo_mod.dense_counts(cfg, dev)
+                runs = {"albedo": geo_mod.geometry_pass(*args, emit_albedo=True),
+                        "no albedo": geo_mod.geometry_pass(*args),
+                        "counted": geo_mod.geometry_pass(*args, emit_albedo=True, counts=counts)}
+                view, proj = frame.camera_matrices(cams[0], cfg)
+                vis = geo_mod.visibility_pass_dense(td, cams[0].position, view, proj, cfg,
+                                                    rotation=cams[0].rotation)
+                plain = geo_mod.geometry_pass_plain(*args, emit_albedo=True)
+                want = geo_mod.dense_counts_plain(td, cams[0].position, cams[0].rotation, cfg)
+                torch.cuda.synchronize()
+                same = all(torch.equal(getattr(k, f), getattr(plain, f))
+                           for name, k in runs.items() for f in plain._fields
+                           if name != "no albedo" or f != "albedo")
+                same &= runs["no albedo"].albedo is None
+                same &= all(torch.equal(getattr(vis, f), getattr(plain, n))
+                            for f, n in (("visibility", "visibility"), ("world_pos", "world_pos"),
+                                         ("depth", "depth")))
+                if not (same and torch.equal(counts, want)):
+                    check(False, f"dense geometry {label}: every plane of both modes bit-equal "
+                                 "to the plain version, counts equal the cull's twin")
+                cases += 1
+                tests.append((label, counts[0].double().mean().item()))
+    print("dense geometry tests a pixel: " + "; ".join(f"{k} {v:.3f}" for k, v in tests))
+    check(True, f"dense geometry kernel: {cases} cases (poses x sizes x scenes), every plane of "
+                "the full mode with and without albedo, of the counting launch and of the "
+                "visibility-only mode bit-equal to the plain version; tests and survivors equal "
+                "the cull's plain twin")
+    print(f"dense geometry phase: {time.time() - t_phase:.1f} s", flush=True)
+
+
 def large_kernel_phase(pt, dev, records) -> None:
     """The large-scene kernels against their plain versions and against the
     dense kernels; adds the records of geometry_bvh, trace_segment and
@@ -1221,8 +1453,7 @@ def visibility_mode(pt, geo_mod, td, cfg, cam, dev, label: str) -> dict:
         fields = dict(walk_bound(counts, 20 * n + 224 + 36 * committed), committed_tris=committed,
                       **walk_lane_fields(lanes, counts, n))
     else:
-        t = td.num_triangles
-        fields = bound(20 * n + 224 + 168 * t, TRI_TEST_OPS * t * n)
+        fields = dense_geometry_fields(geo_mod, args, cfg, vis_only=True)
     return dict(mode=f"visibility-only ({label}), {cfg.width}x{cfg.height}", max_abs_err=err,
                 launches_by_path={"visibility_pass": launches.get(name, 0)},
                 **kernel_ms(lambda: geo_mod.visibility_pass(*args),
@@ -1576,6 +1807,7 @@ def main() -> int:
         records = kernel_phase(pt, (geo_mod, pt_mod, at_mod), dev)
         svgf_kernel_phase(pt, (geo_mod, pt_mod, at_mod), dev, records)
         golden_phase(pt, dev)
+        dense_geometry_phase(pt, dev)
         large_kernel_phase(pt, dev, records)
         gradient_kernel_phase(pt, dev, records)
         paths = {"default": sequence_phase(pt, dev)}
@@ -1606,8 +1838,9 @@ def main() -> int:
              "max_abs_err", "ms", "ms_is", "call_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "modes", "ns_per_iter", "plain_ns_per_iter", "iters", "launch_ms",
              "note"]
-    order += ["tri_tests", "box_tests", "node_rows_read", "tri_rows_read", "committed_tris",
-              "live_rays", "lane_eff", "steps_per_ray"]
+    order += ["tri_tests", "tests_per_pixel", "survivors_per_pixel", "bound_ms_untiled", "cull_ops",
+              "box_tests", "node_rows_read", "tri_rows_read", "committed_tris", "live_rays",
+              "lane_eff", "steps_per_ray"]
     print(json.dumps({"modelled_not_measured_lane_eff_of_earlier_designs": MODELLED}))
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in records]}))
     print(card)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device time of kernels of a tree, to compare two trees (one CUDA card).
 
-    python3 kernel_time.py [--tree DIR] [--group atrous|walk] [--count]
+    python3 kernel_time.py [--tree DIR] [--group atrous|walk|dense] [--count]
 
 Measures the package found in ``DIR`` (default: this script's directory),
 with the checks and records of this script's ``chip_smoke.py``, so that an
@@ -28,6 +28,17 @@ segments of paths A and B (the mean device ms of a launch, unchecked:
 launch, the bound and, for a tree whose LBVH geometry and shadow wrappers
 take ``lanes``, the lane efficiency of their walks.
 
+``--group dense``: the dense geometry kernel (``geometry_kernel``) on the
+Cornell box at 1000x800 (the default camera; the reference's frame) and at
+1920x1080 with the albedo planes (the presets), its visibility-only mode
+at 1920x1080, and the kernel at 128 and 288 triangles (subdivided Cornell
+boxes, the orbit camera, 1920x1080), where the LBVH kernel takes those
+scenes in a frame. Each is checked bit for bit against its plain version,
+then timed (the median device ms of a launch); each line has the bound
+and, for a tree whose kernel culls per warp tile (its wrappers take
+``counts``), the triangle tests and cull survivors a pixel from the
+kernel's counting launch, checked against the cull's plain twin.
+
 ``--count`` prints instead, with no card, the a-trous kernels' edge-weight
 evaluations and special-function calls (powf, expf, sqrtf and IEEE
 divides) a pixel of the lattice kernels at the tree's tile (``kTX``,
@@ -44,6 +55,7 @@ import json
 import os
 import re
 import sys
+import time
 
 KS = (1, 5, 9)
 SIZES = {"atrous_iter": ((1000, 800), (1920, 1080)),
@@ -155,14 +167,22 @@ def atrous(pt, dev, emit) -> None:
                 emit(kernel=name, **mode)
 
 
-def older_wrappers(geo_mod, wf) -> bool:
-    """Let chip_smoke's helpers drive a tree whose LBVH geometry and shadow
-    wrappers take no ``lanes`` or ``width`` (a tree before they counted
-    lanes): wrap them to drop those keywords. Returns whether it did."""
+def older_wrappers(geo_mod, wf) -> set:
+    """Let chip_smoke's helpers drive an older tree: wrap its LBVH geometry
+    and shadow wrappers to drop the ``lanes`` and ``width`` keywords they
+    lack (a tree before they counted lanes), and, where its dense geometry
+    kernel tests every triangle for every pixel (a tree before the tile
+    cull, whose ``geometry_pass`` takes no ``counts``), give it the dense
+    counts of that kernel: every triangle a pixel, tested and surviving,
+    and a tile cull over no tiles. Returns the keywords it supplied or
+    dropped."""
     import functools
     import inspect
+    import types
 
-    older = False
+    import torch
+
+    older = set()
     for mod, name, keys in ((geo_mod, "geometry_pass_bvh", {"lanes"}),
                             (geo_mod, "visibility_pass", {"lanes"}),
                             (wf, "shadow_segment", {"lanes", "width"})):
@@ -175,8 +195,38 @@ def older_wrappers(geo_mod, wf) -> bool:
             return _fn(*args, **{k: v for k, v in kwargs.items() if k not in _drop})
 
         setattr(mod, name, functools.wraps(fn)(shim))
-        older = True
-    return older
+        older |= drop
+    if "counts" in inspect.signature(geo_mod.geometry_pass).parameters:
+        return older
+
+    def untiled(tri_data, cfg):
+        n = cfg.width * cfg.height
+        return torch.full((2, n), tri_data.num_triangles, dtype=torch.int32,
+                          device=tri_data.lut.device)
+
+    def counted(fn, cfg_at: int):
+        # cfg_at: the position of cfg among the wrapper's arguments
+        def shim(*args, counts=None, **kwargs):
+            if not isinstance(counts, torch.Tensor):  # the LBVH's WalkCounts, or none
+                return fn(*args, **kwargs) if counts is None else fn(*args, counts=counts,
+                                                                     **kwargs)
+            out = fn(*args, **kwargs)
+            counts.copy_(untiled(args[0], args[cfg_at]))
+            return out
+
+        return functools.wraps(fn)(shim)
+
+    geo_mod.geometry_pass = counted(geo_mod.geometry_pass, 12)
+    geo_mod.visibility_pass = counted(geo_mod.visibility_pass, 4)
+    geo_mod.dense_counts = lambda cfg, device: torch.zeros(
+        (2, cfg.width * cfg.height), dtype=torch.int32, device=device)
+    geo_mod.dense_counts_plain = lambda td, camera_pos, rotation, cfg: untiled(td, cfg)
+    ops = sys.modules[geo_mod.__name__.rsplit(".", 2)[0]]
+    if not hasattr(ops, "tilecull"):
+        ops.tilecull = types.ModuleType(f"{ops.__name__}.tilecull")
+        ops.tilecull.tile_grid = lambda cfg: (0, 0)
+        sys.modules[ops.tilecull.__name__] = ops.tilecull
+    return older | {"counts"}
 
 
 def walk(pt, dev, emit) -> None:
@@ -193,7 +243,7 @@ def walk(pt, dev, emit) -> None:
     )
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import procedural
 
-    if older_wrappers(geo_mod, wf):
+    if "lanes" in older_wrappers(geo_mod, wf):
         emit_all = emit
 
         def emit(**line):
@@ -239,10 +289,61 @@ def walk(pt, dev, emit) -> None:
         torch.cuda.synchronize()
 
 
+def dense(pt, dev, emit) -> None:
+    """The dense geometry kernel in both modes (``--group dense``). For an
+    older tree (``older_wrappers``) the lines carry no survivors."""
+    import torch
+
+    import chip_smoke
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import (
+        geometry as geo_mod,
+        wavefront as wf,
+    )
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import procedural
+
+    if "counts" in older_wrappers(geo_mod, wf):
+        emit_all = emit
+
+        def emit(**line):
+            line.pop("survivors_per_pixel", None)
+            emit_all(**line)
+
+    poses = chip_smoke.dense_poses(pt, dev)
+    cornell = pt.precompute_triangle_data(pt.Scene.cornell_box(), dev)
+    w, h = chip_smoke.BENCH_SIZE
+    cases = [(f"Cornell box, default camera, {cw}x{ch}{', albedo planes' if albedo else ''}",
+              cornell, pt.RenderConfig(width=cw, height=ch), poses["default"], albedo)
+             for (cw, ch), albedo in (((1000, 800), False), ((w, h), True))]
+    for splits in (2, 3):
+        td = pt.precompute_triangle_data(
+            pt.Scene.from_arrays(*procedural.subdivided_cornell(splits)), dev)
+        cases.append((f"{td.num_triangles} tris, orbit camera, {w}x{h}", td,
+                      pt.RenderConfig(width=w, height=h), poses["orbit"], False))
+    for label, td, cfg, cams, albedo in cases:
+        args = chip_smoke.dense_geometry_args(pt, td, cfg, cams, dev)
+        k = geo_mod.geometry_pass(*args, emit_albedo=albedo)
+        t0 = time.perf_counter()
+        p = geo_mod.geometry_pass_plain(*args, emit_albedo=albedo)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        err = max(chip_smoke.same_bits(f"geometry {name} {label}", getattr(k, name).float(),
+                                       getattr(p, name).float())
+                  for name in p._fields if getattr(p, name) is not None)
+        emit(kernel="geometry", mode=label, max_abs_err=err, plain_ms=plain_ms,
+             **chip_smoke.kernel_ms(lambda: geo_mod.geometry_pass(*args, emit_albedo=albedo),
+                                    "geometry_kernel"),
+             **chip_smoke.dense_geometry_fields(geo_mod, args, cfg, albedo=albedo))
+        torch.cuda.synchronize()
+    vis = chip_smoke.visibility_mode(pt, geo_mod, cornell, pt.RenderConfig(width=w, height=h),
+                                     poses["default"][0], dev, "Cornell box, dense kernel")
+    vis.pop("launches_by_path")
+    emit(kernel="geometry[visibility]", **vis)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)))
-    parser.add_argument("--group", choices=("atrous", "walk"), default="atrous")
+    parser.add_argument("--group", choices=("atrous", "walk", "dense"), default="atrous")
     parser.add_argument("--count", action="store_true")
     args = parser.parse_args()
     if args.count:
@@ -273,7 +374,7 @@ def main() -> int:
         print(json.dumps(dict(tree=tree, card=card, **line)), flush=True)
 
     try:
-        {"atrous": atrous, "walk": walk}[args.group](pt, dev, emit)
+        {"atrous": atrous, "walk": walk, "dense": dense}[args.group](pt, dev, emit)
     except chip_smoke.PhaseError as e:
         print(f"kernel_time: {e}", file=sys.stderr)
         return 1

@@ -59,7 +59,7 @@ struct DenseTable {
   }
 
   // argmin over t_cand (invalid -> 2 t_max) takes the first minimum: a
-  // strict < in triangle order does the same (common.cuh nearest_hit).
+  // strict < in triangle order does the same (geometry.cu tile_nearest_hit).
   template <bool kCount>
   __device__ __forceinline__ Hit nearest(V3 o, V3 d, float t_max, float eps, Counts& c) const {
     if (kCount) c.tri += num_tris;

@@ -15,8 +15,8 @@
 // best included, and the nearest hit commits on the pair (t, triangle):
 // t < best, or t == best and a lower triangle index. So the committed hit
 // is the least (t, index) over all valid hits whatever the visit order,
-// which is what the dense loop's strict < in index order (common.cuh
-// nearest_hit) and the plain version's argmin commit.
+// which is what the dense loop's strict < in index order (geometry.cu
+// tile_nearest_hit) and the plain version's argmin commit.
 #pragma once
 
 #include <climits>

@@ -1,7 +1,8 @@
 // Device helpers shared by the geometry and path-trace kernels: float3
 // arithmetic in the plain PyTorch version's operation order, the PCG
-// generator of ops/rng.py, and the ray/triangle test and dense nearest-hit
-// loop of ops/intersect.py.
+// generator of ops/rng.py, and the ray/triangle test of ops/intersect.py
+// (the geometry kernel's dense loop over it, with its tile cull, is
+// geometry.cu tile_nearest_hit).
 //
 // Every expression here is written in the order the plain version
 // evaluates it (dot products as (a0*b0 + a1*b1) + a2*b2, no reassociation).
@@ -209,26 +210,6 @@ __device__ __forceinline__ bool tri_test(const float* r, V3 o, V3 d, float t_max
                                          float& t, float& u, float& v) {
   return tri_test(load3(r + 9), r[12], load3(r + 13), r[16], load3(r + 17), r[20], o, d, t_max,
                   eps, t, u, v);
-}
-
-__device__ __forceinline__ Hit nearest_hit(const float* tab, int stride, int num_tris, V3 o, V3 d,
-                                           float t_max, float eps) {
-  // argmin over t_cand (invalid -> 2 t_max) takes the first minimum: a
-  // strict < in triangle order does the same.
-  float best = INFINITY;
-  Hit h = {false, 0, 0.0f, 0.0f, 0.0f};
-  const float miss_t = 2.0f * t_max;
-  for (int i = 0; i < num_tris; ++i) {
-    float t, u, v;
-    bool valid = tri_test(tab + i * stride, o, d, t_max, eps, t, u, v);
-    float t_cand = valid ? t : miss_t;
-    if (t_cand < best) {
-      best = t_cand;
-      h = {valid, i, t, u, v};
-    }
-  }
-  if (!h.hit) return {false, 0, t_max, 0.0f, 0.0f};
-  return h;
 }
 
 // v0 + u*e1 + v*e2 of the committed triangle (ops/intersect.hit_position).

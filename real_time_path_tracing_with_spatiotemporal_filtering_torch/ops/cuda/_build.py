@@ -111,8 +111,9 @@ def signatures() -> dict:
     return {
         # table, num_tris, params, width, height, slope, t_max, eps,
         # vis, depth, normal, lam, prev_y, prev_x, world, albedo,
-        # out_albedo (null: no albedo planes), vis_only, stream
-        "ptsf_geometry": [p, i, p, i, i, f, f, f, p, p, p, p, p, p, p, p, p, i, p],
+        # out_albedo (null: no albedo planes), vis_only, counts (null: not
+        # counted), stream
+        "ptsf_geometry": [p, i, p, i, i, f, f, f, p, p, p, p, p, p, p, p, p, i, p, p],
         # table, num_tris, params, width, height, frame, max_bounces, spp,
         # batches, slope, aa_sigma, ray_eps, t_max, eps, light_r, light_r2,
         # first_dim, light_through_walls, nee, rr_start, rr_min, rr_max,

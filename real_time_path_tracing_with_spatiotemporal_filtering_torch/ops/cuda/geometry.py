@@ -7,7 +7,8 @@ PyTorch version, for tensors on the CPU. Both return
 camera rays and the triangle tables, so the filter and the blend read
 planes instead of per-pixel LUT gathers. :func:`visibility_pass` runs the
 same kernels in their visibility-only mode, the drop-in for
-ops/gbuffer.visibility_pass.
+ops/gbuffer.visibility_pass. The dense kernel culls its table per warp
+tile of 8x4 pixels; ops/tilecull.py is that cull's plain twin.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
     gbuffer,
     gradient,
     intersect,
+    tilecull,
 )
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import _build
 
@@ -111,14 +113,19 @@ def _outputs(out: GeometryBuffers) -> tuple:
 
 def geometry_pass(tri_data, lut_prev, camera_pos, rotation, light_pos,
                   light_pos_prev, light_color, light_color_prev, view, proj,
-                  view_prev, proj_prev, cfg, emit_albedo: bool = False) -> GeometryBuffers:
+                  view_prev, proj_prev, cfg, emit_albedo: bool = False,
+                  counts=None) -> GeometryBuffers:
     """G-buffer, temporal gradient and backprojection in one kernel launch,
     with the albedo planes when ``emit_albedo`` (plain version for CPU
-    tensors)."""
+    tensors). ``counts``: optional (2, H*W) int32 tensor that receives
+    each pixel's triangle tests and its warp tile's cull survivors
+    (:func:`dense_counts`), for counting the work of a launch."""
     args = (tri_data, lut_prev, camera_pos, rotation, light_pos,
             light_pos_prev, light_color, light_color_prev, view, proj,
             view_prev, proj_prev, cfg)
     if camera_pos.device.type == "cpu":
+        if counts is not None:
+            counts.copy_(dense_counts_plain(tri_data, camera_pos, rotation, cfg))
         return geometry_pass_plain(*args, emit_albedo=emit_albedo)
     t = tri_data.num_triangles
     table = _dense_table(tri_data, lut_prev)
@@ -136,8 +143,30 @@ def geometry_pass(tri_data, lut_prev, camera_pos, rotation, light_pos,
         albedo.data_ptr(),
         out.albedo.data_ptr() if emit_albedo else None,
         0,
+        _dense_count_pointer(counts, cfg),
     )
     return out
+
+
+def dense_counts(cfg, device) -> torch.Tensor:
+    """Zeroed counters for a dense geometry launch at ``cfg``'s size: row 0
+    each pixel's triangle tests, row 1 the survivors of its warp tile's
+    cull (ops/tilecull.py)."""
+    return torch.zeros((2, cfg.height * cfg.width), dtype=torch.int32, device=device)
+
+
+def dense_counts_plain(tri_data, camera_pos, rotation, cfg) -> torch.Tensor:
+    """What a counting launch of the dense kernel writes into ``counts``,
+    from the cull's plain twin (ops/tilecull.py)."""
+    survivors = tilecull.tile_survivors_plain(tri_data.planes, camera_pos, rotation, cfg)
+    return tilecull.tile_counts_plain(survivors, cfg)
+
+
+def _dense_count_pointer(counts, cfg) -> int | None:
+    if counts is None:
+        return None
+    _build.check_cuda("counts", counts, torch.int32, (2, cfg.height * cfg.width))
+    return counts.data_ptr()
 
 
 def _dense_table(tri_data, lut_prev) -> torch.Tensor:
@@ -268,44 +297,71 @@ def visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=None,
                     counts=None, lanes=None) -> gbuffer.GBuffer:
     """The G-buffer of ops/gbuffer.visibility_pass (visibility, world
     position, depth) in one launch of the geometry kernels' visibility-only
-    mode: the dense kernel below ops/intersect.BVH_MIN_TRIANGLES, the LBVH
-    kernel from there on (plain version for CPU tensors). ``counts`` and
-    ``lanes``: as in :func:`geometry_pass_bvh`, LBVH scenes only."""
+    mode: the dense kernel below ops/intersect.BVH_MIN_TRIANGLES
+    (:func:`visibility_pass_dense`), the LBVH kernel from there on (plain
+    version for CPU tensors). ``counts`` and ``lanes``: as in
+    :func:`geometry_pass_bvh` on LBVH scenes, as in
+    :func:`visibility_pass_dense` (no ``lanes``) on the others."""
+    if not intersect.uses_bvh(tri_data):
+        if lanes is not None:
+            raise ValueError("lanes are counted on LBVH scenes only")
+        return visibility_pass_dense(tri_data, camera_pos, view, proj, cfg, rotation, counts)
     if camera_pos.device.type == "cpu":
         return gbuffer.visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=rotation)
     if rotation is None:
         rotation = torch.eye(3, dtype=torch.float32, device=camera_pos.device)
+    params, out, pointers, scalars = _visibility_launch(camera_pos, view, proj, cfg, rotation)
+    t = tri_data.num_triangles
+    check_bvh(tri_data)
+    _build.check_cuda("lut", tri_data.lut, torch.float32, (t + 1, 3, 3))
+    _build.check_cuda("lut_normals", tri_data.lut_normals, torch.float32, (t + 1, 3))
+    planes = tri_data.planes
+    _build.launch(
+        "ptsf_geometry_bvh",
+        tri_data.bvh.nodes.data_ptr(), tri_data.bvh.tris.data_ptr(),
+        planes.v0.data_ptr(), planes.e1.data_ptr(), planes.e2.data_ptr(),
+        tri_data.lut_normals.data_ptr(), tri_data.lut.data_ptr(), tri_data.lut.data_ptr(),
+        params.data_ptr(), *scalars, *pointers, None, None, 1,
+        *count_pointers(counts, cfg.width * cfg.height, tri_data), lane_pointer(lanes, counts),
+        label="geometry_bvh[visibility]",
+    )
+    return out
+
+
+def _visibility_launch(camera_pos, view, proj, cfg, rotation):
+    """The visibility-only mode's parameters (the gradient's and the
+    backprojection's are not read), its output planes and their pointers,
+    and the kernels' scalar arguments."""
     zeros3 = torch.zeros(3, dtype=torch.float32, device=camera_pos.device)
-    # the gradient's and the backprojection's parameters are not read
     params = _params(camera_pos, rotation, zeros3, zeros3, zeros3, zeros3, view, proj, view, proj)
     h, w = cfg.height, cfg.width
     f32 = dict(dtype=torch.float32, device=params.device)
-    vis, depth, world = (torch.empty((h, w), **f32), torch.empty((h, w), **f32),
-                         torch.empty((h, w, 3), **f32))
-    outputs = (vis.data_ptr(), depth.data_ptr(), None, None, None, None, world.data_ptr())
-    geo_args = (cam_ops.fov_slope(cfg.fov), float(np.float32(cfg.t_max)),
-                float(np.float32(cfg.intersect_eps)))
-    t = tri_data.num_triangles
-    if intersect.uses_bvh(tri_data):
-        check_bvh(tri_data)
-        _build.check_cuda("lut", tri_data.lut, torch.float32, (t + 1, 3, 3))
-        _build.check_cuda("lut_normals", tri_data.lut_normals, torch.float32, (t + 1, 3))
-        planes = tri_data.planes
-        _build.launch(
-            "ptsf_geometry_bvh",
-            tri_data.bvh.nodes.data_ptr(), tri_data.bvh.tris.data_ptr(),
-            planes.v0.data_ptr(), planes.e1.data_ptr(), planes.e2.data_ptr(),
-            tri_data.lut_normals.data_ptr(), tri_data.lut.data_ptr(), tri_data.lut.data_ptr(),
-            params.data_ptr(), w, h, *geo_args, *outputs, None, None, 1,
-            *count_pointers(counts, w * h, tri_data), lane_pointer(lanes, counts),
-            label="geometry_bvh[visibility]",
-        )
-    else:
-        if counts is not None or lanes is not None:
-            raise ValueError("counts are taken on LBVH scenes only")
-        table = _dense_table(tri_data, tri_data.lut)
-        _build.launch(
-            "ptsf_geometry", table.data_ptr(), t, params.data_ptr(), w, h, *geo_args, *outputs,
-            None, None, 1, label="geometry[visibility]",
-        )
-    return gbuffer.GBuffer(visibility=vis, world_pos=world, depth=depth)
+    out = gbuffer.GBuffer(visibility=torch.empty((h, w), **f32),
+                          world_pos=torch.empty((h, w, 3), **f32),
+                          depth=torch.empty((h, w), **f32))
+    pointers = (out.visibility.data_ptr(), out.depth.data_ptr(), None, None, None, None,
+                out.world_pos.data_ptr())
+    scalars = (w, h, cam_ops.fov_slope(cfg.fov), float(np.float32(cfg.t_max)),
+               float(np.float32(cfg.intersect_eps)))
+    return params, out, pointers, scalars
+
+
+def visibility_pass_dense(tri_data, camera_pos, view, proj, cfg, rotation=None,
+                          counts=None) -> gbuffer.GBuffer:
+    """:func:`visibility_pass` through the dense kernel, on any scene its
+    table holds (plain version for CPU tensors). ``counts``: as in
+    :func:`geometry_pass`."""
+    eye = torch.eye(3, dtype=torch.float32, device=camera_pos.device)
+    if camera_pos.device.type == "cpu":
+        if counts is not None:
+            counts.copy_(dense_counts_plain(
+                tri_data, camera_pos, eye if rotation is None else rotation, cfg))
+        return gbuffer.visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=rotation)
+    params, out, pointers, scalars = _visibility_launch(
+        camera_pos, view, proj, cfg, eye if rotation is None else rotation)
+    table = _dense_table(tri_data, tri_data.lut)
+    _build.launch(
+        "ptsf_geometry", table.data_ptr(), tri_data.num_triangles, params.data_ptr(), *scalars,
+        *pointers, None, None, 1, _dense_count_pointer(counts, cfg), label="geometry[visibility]",
+    )
+    return out

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+import real_time_path_tracing_with_spatiotemporal_filtering_torch as pt
 from real_time_path_tracing_with_spatiotemporal_filtering_torch import (
     Camera,
     Light,
@@ -80,21 +82,43 @@ def _geometry_args(dev, cfg=CFG):
 ATROUS_SIZES = [(1000, 800), (1003, 797), (37, 13)]
 
 
-def test_geometry_kernel(dev):
-    args = _geometry_args(dev)
+@pytest.mark.parametrize("tris", [32, 128, 288])
+@pytest.mark.parametrize("size", ATROUS_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("pose", ["default", "orbit", "near_wall"])
+def test_geometry_kernel(dev, pose, size, tris):
+    """Every plane of the dense kernel is bit-equal to the plain version: the
+    full mode with and without the albedo planes, its counting launch and
+    the visibility-only mode; the counted tests and survivors equal the
+    tile cull's plain twin."""
+    cfg = dataclasses.replace(CFG, width=size[0], height=size[1])
+    td = (precompute_triangle_data(Scene.cornell_box(), dev) if tris == 32
+          else _stress({128: 2, 288: 3}[tris], dev))
+    cams = chip_smoke.dense_poses(pt, dev)[pose]
+    cam = cams[0]
+    view, proj = frame.camera_matrices(cam, cfg)
+    args = chip_smoke.dense_geometry_args(pt, td, cfg, cams, dev)
     _build.LAUNCHES.clear()
-    k = cuda_geometry.geometry_pass(*args)
-    assert _build.LAUNCHES["geometry"] == 1
-    p = cuda_geometry.geometry_pass_plain(*args)
-    assert (k.visibility != p.visibility).double().mean().item() <= 1e-4
-    same = k.visibility == p.visibility
-    torch.testing.assert_close(k.depth[same], p.depth[same], atol=1e-5, rtol=0)
-    torch.testing.assert_close(k.normal[same], p.normal[same], atol=1e-6, rtol=0)
-    torch.testing.assert_close(k.world_pos[same], p.world_pos[same], atol=1e-5, rtol=0)
-    torch.testing.assert_close(k.lam[same], p.lam[same], atol=2e-4, rtol=0)
-    for a, b in ((k.prev_y, p.prev_y), (k.prev_x, p.prev_x)):
-        d = (a - b).abs()
-        assert d.max().item() <= 1 and (d > 0).double().mean().item() < 1e-3
+    full = cuda_geometry.geometry_pass(*args, emit_albedo=True)
+    assert dict(_build.LAUNCHES) == {"geometry": 1}
+    bare = cuda_geometry.geometry_pass(*args)
+    counts = cuda_geometry.dense_counts(cfg, dev)
+    counted = cuda_geometry.geometry_pass(*args, emit_albedo=True, counts=counts)
+    vis = cuda_geometry.visibility_pass_dense(td, cam.position, view, proj, cfg,
+                                              rotation=cam.rotation)
+    assert _build.LAUNCHES["geometry[visibility]"] == 1
+    plain = cuda_geometry.geometry_pass_plain(*args, emit_albedo=True)
+    assert torch.isfinite(full.depth).all() and torch.isfinite(full.lam).all()
+    for name in plain._fields:
+        assert torch.equal(getattr(full, name), getattr(plain, name)), name
+        assert torch.equal(getattr(counted, name), getattr(plain, name)), name
+        if name != "albedo":
+            assert torch.equal(getattr(bare, name), getattr(plain, name)), name
+    assert bare.albedo is None
+    for name in vis._fields:
+        assert torch.equal(getattr(vis, name), getattr(plain, name)), name
+    want = cuda_geometry.dense_counts_plain(td, cam.position, cam.rotation, cfg)
+    assert torch.equal(counts, want)
+    assert counts[0].double().mean().item() < tris  # the cull drops most triangles
 
 
 @pytest.mark.parametrize("walls", [True, False], ids=["through_walls", "respects_walls"])
