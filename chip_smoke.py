@@ -33,7 +33,14 @@ filtering_torch/csrc`` with nvcc, then:
   32,768 triangles and on path D's phased coarse tail with the G-buffer
   seed, and the geometry kernels' visibility-only mode (the drop-in for
   ops/gbuffer.visibility_pass) on the Cornell box and on 32,768 triangles;
-- drives eight main paths through ``Renderer.step()`` on both routes
+- checks the model matrix's two kernels (csrc/model.cu: the moved tables
+  and the refit of the LBVH) bit for bit against their plain versions at
+  32, 128, 32,768 and 247,808 triangles, the refitted node table against
+  the host's pack of the rest tree over the moved triangles, and runs the
+  move under ``torch.cuda.set_sync_debug_mode("error")``; prints what the
+  refitted tree costs the walks at path MA's last pose (box tests and
+  device ms against a fresh tree and the unmoved scene);
+- drives ten main paths through ``Renderer.step()`` on both routes
   (kernels, and ``backend="xla"``, the plain version), each with the launch
   counts read just after it: the default config for 16 frames at 1000x800,
   the ``cornell_box_quality`` and ``cornell_box_interactive`` presets for 8
@@ -45,7 +52,10 @@ filtering_torch/csrc`` with nvcc, then:
   indirect, the G-buffer seed, grid jitter, variance-guided SVGF and the
   ramp in "normal" mode; 4 frames at 1920x1080) and path E (the Cornell
   box with the path gradient, variance-guided SVGF and the ramp under a
-  drifting light; 8 frames at 512x512);
+  drifting light; 8 frames at 512x512); paths M (the default config on the
+  Cornell box) and MA (path A's scene and config under a fixed camera),
+  their scene rotating 0.08 rad a frame by ``Renderer.set_model`` (4 frames
+  at 1920x1080);
 - checks the eight micro-kernels (csrc/micro.cu, the JAX package's Mosaic
   micro-benchmarks) against their plain twins at two iteration counts, bit
   for bit on the output and every carry, then runs the port's
@@ -141,6 +151,31 @@ LARGE_PER_FRAME = {
     "C": {"geometry_bvh": 1, "shadow_segment": 1, "trace_segment": 7, "atrous_iter": 9,
           "temporal_blend": 1},
 }
+# The moved-scene paths, through Renderer.set_model: the scene rotates
+# MODEL_STEP rad a frame about the vertical axis through (0, 1, 0), as in
+# the JAX package's tests/test_model.py. (splits of presets.cornell_stress,
+# or None for the Cornell box; config overrides, frames, size.) M is the
+# default config on the Cornell box under the default camera, MA path A's
+# scene and config with the camera held at the orbit's frame-0 pose. Each
+# frame adds the move's launches to its unmoved twin's (default at
+# 1920x1080, A): the refit only where the frame walks the tree
+# (pipeline/frame.walks_tree), so M adds transform_tables alone.
+MODEL_STEP = 0.08
+MODEL_PATHS = {
+    "M": (None, {}, 4, BENCH_SIZE),
+    "MA": (32, LARGE["A"][1], 4, BENCH_SIZE),
+}
+MODEL_PER_FRAME = {
+    "M": {"geometry": 1, "trace": 1, "atrous_iter": 9, "temporal_blend": 1,
+          "transform_tables": 1},
+    "MA": {**LARGE_PER_FRAME["A"], "transform_tables": 1, "bvh_refit": 1},
+}
+# The move's kernels are held to their plain versions at these scene sizes
+# (triangles: splits of subdivided_cornell, None for the Cornell box): the
+# paths' 32 and 32,768, the LBVH's threshold and path B's 247,808.
+MODEL_SCENES = {32: None, 128: 2, 32768: 32, 247808: 88}
+PATHS = {**LARGE, **GRADIENT_PATHS, **MODEL_PATHS}
+PER_FRAME = {**LARGE_PER_FRAME, **GRADIENT_PER_FRAME, **MODEL_PER_FRAME}
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes
 # per second and float32 operations per second outside the tensor cores.
@@ -163,6 +198,15 @@ ATROUS_VAR_OPS = 328
 ATROUS_KS = (1, 5, 9)
 BLEND_OPS = 12
 RAMP_BLEND_OPS = 20
+# The move (csrc/model.cu), a triangle: the transform (9 coordinates of 3
+# products and 3 adds, 54), the edges 6, three cross products 27, |n|^2 5,
+# its reciprocal 1, n1 and n2 6, the square root and the normal 4, d0, d1
+# and d2 17, the albedo's compares 2, the largest |coordinate| 17; the
+# refit's leaf box (12 min and max, the pad 6, the pad's scale 3) and a
+# row's union (6).
+TRANSFORM_OPS = 139
+REFIT_LEAF_OPS = 21
+REFIT_ROW_OPS = 6
 
 
 class PhaseError(RuntimeError):
@@ -1526,12 +1570,142 @@ def gradient_kernel_phase(pt, dev, records) -> None:
     print(f"path-gradient / multi-res kernel phase: {time.time() - t_phase:.1f} s", flush=True)
 
 
+def move_bounds(t: int, rows: int) -> tuple:
+    """The bounds of the move's two launches over ``t`` triangles and
+    ``rows`` node rows. transform_tables reads a LUT row (36 B) and writes
+    204 B a triangle (the LUT row 36, v0, e1, e2 and n 48, n1 and n2 24, d0,
+    d1 and d2 12, the normal, the albedo and the filter normal 36, the test
+    row 48), and reads the
+    model (48 B), writes the background rows (48 B), the pad scale and the
+    zeroed counters (4 B a row); bvh_refit reads a moved LUT row and a leaf
+    slot a triangle (40 B), a rest row's ids, a row slot and a counter (24
+    B) and writes a row (64 B) a row, and reads the pad scale."""
+    return (bound(240 * t + 100 + 4 * rows, TRANSFORM_OPS * t),
+            bound(40 * t + 88 * rows + 4, REFIT_LEAF_OPS * t + REFIT_ROW_OPS * rows))
+
+
+def model_kernel_phase(pt, dev, records) -> None:
+    """The move's two kernels (ops/cuda/model.py) against their plain
+    versions, bit for bit, at MODEL_SCENES' sizes at path MA's last pose;
+    the refitted node table against the host's pack of the rest tree over
+    the moved triangles (scene/lbvh.refit_lbvh); the whole move under
+    ``torch.cuda.set_sync_debug_mode("error")`` (it reads nothing back to
+    the host); each kernel timed from the profiler at every size. Adds the
+    records of transform_tables and bvh_refit, at path MA's 32,768
+    triangles."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import model as mv
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import lbvh, procedural
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling import time_fn
+
+    t_phase = time.time()
+    frames = MODEL_PATHS["MA"][2]
+    m = torch.tensor(model_rotation(MODEL_STEP * frames), device=dev)
+    names = ("transform_tables", "bvh_refit")
+    errs, modes = dict.fromkeys(names, 0.0), {name: [] for name in names}
+    for t, splits in MODEL_SCENES.items():
+        verts, idx = (procedural.cornell_box() if splits is None
+                      else procedural.subdivided_cornell(splits))
+        td = pt.precompute_triangle_data(pt.Scene.from_arrays(verts, idx), dev)
+        tables, workspace = mv.transform_tables(td, m)
+        want, coord_max = mv.transform_tables_plain(td, m)
+        torch.cuda.synchronize()
+        errs["transform_tables"] = max(
+            [errs["transform_tables"]]
+            + [same_bits(f"transform_tables {k} {t} tris", tables[k], want[k]) for k in mv.TABLES]
+            + [same_bits(f"transform_tables pad scale {t} tris",
+                         workspace[:1].view(torch.float32)[0], coord_max)])
+        nodes = mv.bvh_refit(td.bvh, tables["lut"], workspace)
+        nodes_plain = mv.bvh_refit_plain(td.bvh, want["lut"][1:])
+        torch.cuda.synchronize()
+        errs["bvh_refit"] = max(errs["bvh_refit"], same_bits(
+            f"bvh_refit {t} tris (bits)", nodes.view(torch.int32), nodes_plain.view(torch.int32)))
+        moved = want["lut"][1:].cpu().numpy()
+        host = lbvh.pack_bvh_nodes(lbvh.refit_lbvh(lbvh.build_lbvh(verts[idx]), moved), moved)
+        check(np.array_equal(nodes.cpu().numpy().view(np.int32), host.view(np.int32)),
+              f"bvh_refit {t} tris equals the host's pack of the rest tree over the moved "
+              "triangles")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            moved_td = mv.transform_triangle_data(td, m)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(torch.equal(moved_td.bvh.nodes.view(torch.int32), nodes.view(torch.int32)),
+              f"the move of {t} tris runs under sync debug mode 'error' and gives the same tree")
+
+        def move():
+            return mv.transform_triangle_data(td, m).lut
+
+        bounds = move_bounds(t, td.bvh.nodes.shape[0])
+        plain = (lambda: mv.transform_tables_plain(td, m)[1],
+                 lambda: mv.bvh_refit_plain(td.bvh, want["lut"][1:]))
+        for name, bnd, plain_fn in zip(names, bounds, plain):
+            modes[name].append(dict(mode=f"{t} triangles", **kernel_ms(move, f"{name}_kernel"),
+                                    plain_ms=time_fn(plain_fn, iters=3), **bnd))
+            print(f"{name}_kernel {t} tris: {modes[name][-1]['ms']:.4f} ms, bound "
+                  f"{bnd['bound_ms']:.4f} ({bnd['bound_by']})", flush=True)
+    note = ("no TPU kernel: the JAX package applies the model matrix as an XLA map "
+            "(transform_triangle_data) and routes moved scenes dense; call_ms is the whole move")
+    for name in names:
+        main = next(md for md in modes[name] if md["mode"] == "32768 triangles")
+        fields = {f: main[f] for f in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}
+        rec = record(name, "model.cu", "scene/scene.py:170", max_abs_err=errs[name], note=note,
+                     **fields)
+        rec["modes"] = modes[name]
+        records.append(rec)
+    print(f"model kernel phase: {time.time() - t_phase:.1f} s", flush=True)
+
+
+def refit_cost_phase(pt, dev) -> None:
+    """What the refitted tree costs the walks at path MA's last pose (a
+    finding, not a gate): box tests a ray of the LBVH geometry kernel and
+    box tests a pixel over one frame's segments, and their device ms, on
+    the refitted tree, on a tree built afresh on the host over the moved
+    triangles, and on the unmoved scene."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import (
+        geometry as geo_mod,
+        model as mv,
+        wavefront as wf,
+    )
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline import frame
+
+    r = path_renderer(pt, dev, "MA")
+    cfg, rest = r.cfg, r.tri_data
+    m = torch.tensor(model_rotation(MODEL_STEP * MODEL_PATHS["MA"][2]), device=dev)
+    refit = mv.transform_triangle_data(rest, m)
+    t = rest.num_triangles
+    fresh = pt.precompute_triangle_data(pt.Scene.from_arrays(
+        refit.lut[1:].reshape(-1, 3).cpu().numpy(), np.arange(3 * t).reshape(t, 3)), dev)
+    cam, light = orbit(pt, 0, dev), pt.Light.default(dev)
+    view, proj = frame.camera_matrices(cam, cfg)
+    n = cfg.width * cfg.height
+    for label, td in (("refitted", refit), ("fresh", fresh), ("unmoved", rest)):
+        args = (td, td.lut, cam.position, cam.rotation, light.position, light.position,
+                light.color, light.color, view, proj, view, proj, cfg)
+        geo = geometry_bvh_bound(geo_mod, args, td, cfg)
+        counts = geo_mod.WalkCounts.zeros(n, td)
+        frame_segments(wf, td, cfg, cam, light, 5, counts)
+        seg_box = int(counts.tests[1].sum(dtype=torch.int64).item())
+        geo_ms = kernel_ms(lambda: geo_mod.geometry_pass_bvh(*args), "geometry_bvh_kernel")["ms"]
+        seg_ms = kernel_ms(lambda: frame_segments(wf, td, cfg, cam, light, 5),
+                           "trace_segment_kernel", 3, warmup=1, mean=True)["ms"]
+        print(json.dumps(dict(refit_cost=label, tris=t, size=f"{cfg.width}x{cfg.height}",
+                              geometry_box_tests_per_ray=geo["box_tests"] / n,
+                              geometry_bvh_ms=geo_ms,
+                              segment_box_tests_per_pixel=seg_box / n,
+                              trace_segment_ms_per_frame=seg_ms * cfg.max_bounces)), flush=True)
+
+
 def path_renderer(pt, dev, path: str, backend: str = "auto", size=None):
     """The Renderer of a large-scene or gradient path (LARGE, GRADIENT_PATHS)
     on one route, at its size or ``size``."""
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets
 
-    splits, over, _, (w, h) = {**LARGE, **GRADIENT_PATHS}[path]
+    splits, over, _, (w, h) = PATHS[path]
     if size is not None:
         w, h = size
     if splits is None:
@@ -1541,23 +1715,39 @@ def path_renderer(pt, dev, path: str, backend: str = "auto", size=None):
                                   **over)
 
 
+def model_rotation(angle: float) -> np.ndarray:
+    """The (4, 4) rotation by ``angle`` about the vertical axis through
+    (0, 1, 0) (the JAX package's tests/test_model.py _center_rot_y)."""
+    c, s = np.cos(angle), np.sin(angle)
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[0, 2], m[2, 0], m[2, 2] = c, s, -s, c
+    center = np.float32([0.0, 1.0, 0.0])
+    m[:3, 3] = center - m[:3, :3] @ center
+    return m
+
+
 def advance(pt, r, path: str, f: int, dev) -> None:
     """Frame f's motion: the drifting light of path E (the suite's row 2e),
-    the suite's orbit camera elsewhere."""
+    the rotating scene of paths M and MA (MA's camera held at the orbit's
+    frame 0), the suite's orbit camera elsewhere."""
     if path == "E":
         r.move_light(dx=0.05)
+    elif path in MODEL_PATHS:
+        if path == "MA":
+            r.camera = orbit(pt, 0, dev)
+        r.set_model(model_rotation(MODEL_STEP * (f + 1)))
     else:
         r.camera = orbit(pt, f, dev)
 
 
 def large_sequence_phase(pt, dev, path: str) -> dict:
-    """Frames of a large-scene or gradient path through Renderer.step() on
-    both routes; returns the kernel launch counts."""
+    """Frames of a large-scene, gradient or moved-scene path through
+    Renderer.step() on both routes; returns the kernel launch counts."""
     import torch
 
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import LAUNCHES
 
-    _, _, frames, (w, h) = {**LARGE, **GRADIENT_PATHS}[path]
+    _, _, frames, (w, h) = PATHS[path]
     t_phase = time.time()
     r_k = path_renderer(pt, dev, path)
     r_p = path_renderer(pt, dev, path, backend="xla")
@@ -1576,8 +1766,7 @@ def large_sequence_phase(pt, dev, path: str) -> dict:
         check(finite and tuple(a.shape) == (h, w, 3), f"path {path} frame {f} finite, shape (H, W, 3)")
         check(bad <= 0.01 and mean <= 1e-4, f"path {path} frame {f} kernel route within 1e-3 on >= 99%")
     counts = dict(LAUNCHES)
-    per_frame = {**LARGE_PER_FRAME, **GRADIENT_PER_FRAME}[path]
-    expected = {k: frames * v for k, v in per_frame.items()}
+    expected = {k: frames * v for k, v in PER_FRAME[path].items()}
     print(f"path {path} ({r_k.tri_data.num_triangles} tris, {w}x{h}) launch counts over "
           f"{frames} frames: {counts}; {time.time() - t_phase:.1f} s")
     check(counts == expected, f"path {path} launch counts {expected}")
@@ -1586,9 +1775,9 @@ def large_sequence_phase(pt, dev, path: str) -> dict:
 
 def large_timing_phase(pt, dev, card: str) -> None:
     """presets.cornell_stress() with its defaults and at BVH_MIN_TRIANGLES
-    (splits=2) on the kernel route, then ms/frame of paths A, B, C and D at
-    1920x1080 and E at 512x512 on the kernel route, and of the plain routes
-    of paths A and D once."""
+    (splits=2) on the kernel route, then ms/frame of paths A, B, C, D, M and
+    MA at 1920x1080 and E at 512x512 on the kernel route, and of the plain
+    routes of paths A and D once."""
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets
 
     import torch
@@ -1613,11 +1802,14 @@ def large_timing_phase(pt, dev, card: str) -> None:
               f"cornell_stress({over}) renders on the kernel route through the LBVH kernels")
     for path, backend, reps, warmup in (("A", "auto", 10, 2), ("B", "auto", 5, 2),
                                         ("C", "auto", 10, 2), ("D", "auto", 10, 2),
-                                        ("E", "auto", 20, 3), ("A", "xla", 1, 0),
+                                        ("E", "auto", 20, 3), ("M", "auto", 20, 3),
+                                        ("MA", "auto", 10, 2), ("A", "xla", 1, 0),
                                         ("D", "xla", 1, 1)):
         size = (512, 512) if path == "E" else (w, h)
         r = path_renderer(pt, dev, path, backend, size)
-        if path != "E":
+        if path in MODEL_PATHS:  # the scene held at the paths' first pose
+            advance(pt, r, path, 0, dev)
+        elif path != "E":
             r.camera = orbit(pt, 0, dev)
         ms = time_fn(r.step, iters=reps, warmup=warmup)
         route = "kernels" if backend == "auto" else "plain"
@@ -1810,10 +2002,12 @@ def main() -> int:
         dense_geometry_phase(pt, dev)
         large_kernel_phase(pt, dev, records)
         gradient_kernel_phase(pt, dev, records)
+        model_kernel_phase(pt, dev, records)
+        refit_cost_phase(pt, dev)
         paths = {"default": sequence_phase(pt, dev)}
         for name in PRESETS:
             paths[name] = preset_sequence_phase(pt, dev, name)
-        for path in (*LARGE, *GRADIENT_PATHS):
+        for path in PATHS:
             paths[path] = large_sequence_phase(pt, dev, path)
         micro_records, paths["mosaic_micro"] = micro_phase(dev)
         records += micro_records

@@ -3,7 +3,7 @@
 
     python3 frame_profile.py [--configs default,default_1080p,quality,interactive,
                                         stress32,stress88,stress32c,recommended32,
-                                        pathgrad512]
+                                        pathgrad512,moved_1080p,stress32m]
                              [--out frame_profiles]
 
 For each configuration, renders 5 warm-up frames through
@@ -34,7 +34,12 @@ adaptive alpha, and 247,808 triangles in the default parity config;
 indirect at split 1 and stride 4, the G-buffer seed, grid jitter,
 variance-guided SVGF and the ramp in "normal" mode) and ``pathgrad512`` its
 row 2e (the Cornell box at 512x512 with variance-guided SVGF, the ramp and
-the path gradient).
+the path gradient). ``moved_1080p`` and ``stress32m`` are ``default_1080p``
+and ``stress32`` with the scene moved every frame by ``Renderer.set_model``
+through the four poses of chip_smoke.py's paths M and MA in turn (0.08 to
+0.32 rad about the vertical axis through (0, 1, 0); the matrices placed on
+the card before the frames), so that each frame's work stays close to its
+unmoved twin's.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import itertools
 import json
 import os
 import sys
@@ -69,6 +75,8 @@ STRESS = {
 }
 PATHGRAD512 = dict(width=512, height=512, variance_guided=True, accumulation_ramp=True,
                    path_gradient=True)
+# moved scenes: the configuration each one moves
+MOVED = {"moved_1080p": "default_1080p", "stress32m": "stress32"}
 # plain PyTorch functions whose kernels are reported apart: (module, name)
 RANGES = (("pathgrad", "path_gradient_pass"), ("pathgrad", "box3_filter"),
           ("multires", "combine_planes"))
@@ -127,16 +135,36 @@ def _annotated_ranges():
             setattr(mod, fn_name, fn)
 
 
+def _stepper(r, name: str):
+    """A frame of ``r``: step(), under a moved configuration after setting
+    the next of the four poses' model matrices (made on the card up front)."""
+    import torch
+
+    if name not in MOVED:
+        return r.step
+    from chip_smoke import MODEL_STEP, model_rotation
+
+    poses = itertools.cycle([torch.tensor(model_rotation(MODEL_STEP * (i + 1)), device=r.device)
+                             for i in range(4)])
+
+    def step():
+        r.set_model(next(poses))
+        return r.step()
+
+    return step
+
+
 def profile(pt, name: str, out: str) -> dict:
     import torch
 
-    r = _renderer(pt, name)
+    r = _renderer(pt, MOVED.get(name, name))
+    step = _stepper(r, name)
     for _ in range(WARMUP):
-        r.step()
+        step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(FRAMES):
-        r.step()
+        step()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / FRAMES
 
@@ -144,7 +172,7 @@ def profile(pt, name: str, out: str) -> dict:
     with _annotated_ranges(), torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(FRAMES):
-            r.step()
+            step()
         torch.cuda.synchronize()
         prof_ms = 1e3 * (time.perf_counter() - t0) / FRAMES
     path = os.path.join(out, f"frame_profile_{name}.json")
@@ -200,7 +228,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--configs",
                         default="default,default_1080p,quality,interactive,stress32,stress88,"
-                                "stress32c,recommended32,pathgrad512")
+                                "stress32c,recommended32,pathgrad512,moved_1080p,stress32m")
     parser.add_argument("--out", default="frame_profiles")
     args = parser.parse_args()
     if not torch.cuda.is_available():

@@ -154,6 +154,12 @@ def signatures() -> dict:
         # seen_tri (all three null: not counted), lanes (null: not
         # counted), stream
         "ptsf_shadow_segment": [p] * 6 + [i, i, f, f] + [p] * 5 + [p],
+        # rest_lut, model, num_tris, num_rows, lut, v0, e1, e2, n, d0, n1, d1,
+        # n2, d2, normals, albedo, lut_normals, tests, workspace, stream
+        "ptsf_transform_tables": [p, p, i, i] + [p] * 15 + [p],
+        # rest_nodes, leaf_slot, row_slot, lut, workspace, num_tris, nodes,
+        # stream
+        "ptsf_bvh_refit": [p] * 5 + [i, p, p],
         # the micro-kernels (ops/cuda/micro.py): x, out, ints, floats (null
         # where the kernel has none), iters, rows, cols (vec only), stream
         **{f"ptsf_micro_{k}": [p, p, p, p, i, i, i, p]

@@ -14,7 +14,9 @@ temporal blend (with the accumulation ramp under cfg.accumulation_ramp),
 which gathers the history at the geometry kernel's coordinates. The path
 gradient's re-trace and the multi-res split's traces run on the segment
 tracer's explicit-pixel mode; their gathers, box filter and upsample stay
-plain PyTorch on the card, as the JAX package leaves them to XLA.
+plain PyTorch on the card, as the JAX package leaves them to XLA. A
+per-frame model matrix moves the scene's tables first, on the kernel route
+by the two kernels of ops/cuda/model.py.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import (
     atrous as cuda_atrous,
     geometry as cuda_geometry,
+    model as cuda_model,
     pathtrace as cuda_pathtrace,
     wavefront as cuda_wavefront,
 )
@@ -47,16 +50,17 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene.scene impo
     Camera,
     Light,
     TriangleData,
+    transform_triangle_data,
 )
 
-def check_supported(cfg: RenderConfig, model=None) -> None:
-    """Raise NotImplementedError for what this package does not run yet:
-    the per-frame model matrix (every RenderConfig runs)."""
-    if model is not None:
-        raise NotImplementedError(
-            "the per-frame model matrix is not ported to the PyTorch package "
-            "yet (ROADMAP Queue 1 item 9)"
-        )
+
+def walks_tree(tri_data: TriangleData, cfg: RenderConfig, kernels: bool) -> bool:
+    """Whether the frame reads the scene's LBVH: from BVH_MIN_TRIANGLES on
+    (ops/intersect.uses_bvh), and on the kernel route at any size wherever
+    the segment tracer runs, whose kernels always walk it (gbuffer_primary,
+    indirect_split, path_gradient)."""
+    return intersect.uses_bvh(tri_data) or (
+        kernels and (cfg.gbuffer_primary or bool(cfg.indirect_split) or cfg.path_gradient))
 
 
 def use_kernels(cfg: RenderConfig, device: torch.device) -> bool:
@@ -102,9 +106,21 @@ def render_frame_impl(
     denoised (H, W, 3) image and the next frame's history. The plain route
     mirrors the JAX package's XLA frame (pipeline/frame.py there), including
     its SVGF and estimator extensions.
+
+    ``model``: optional (4, 4) or (3, 4) per-frame model matrix (the
+    reference's UBO model slot, visibility.vert.glsl:22-24), applied to the
+    rest pose's tables before anything else (scene.transform_triangle_data;
+    on the kernel route the two kernels of ops/cuda/model.py). The history
+    then carries the moved LUT, so reprojection and the temporal gradient
+    follow the motion, as the reference's modelPrev would
+    (main.cpp:1465-1469). Scenes keep their route: a frame that walks the
+    LBVH (:func:`walks_tree`) walks the rest pose's tree, refitted.
     """
-    check_supported(cfg, model)
-    if use_kernels(cfg, tri_data.lut.device):
+    kernels = use_kernels(cfg, tri_data.lut.device)
+    if model is not None:
+        move = cuda_model.transform_triangle_data if kernels else transform_triangle_data
+        tri_data = move(tri_data, model, refit=walks_tree(tri_data, cfg, kernels))
+    if kernels:
         return _render_frame_kernels(tri_data, camera, light, history, cfg)
     frame_idx = history.frame
     view, proj = camera_matrices(camera, cfg)

@@ -27,6 +27,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene.scene impo
     Light,
     Scene,
     TriangleData,
+    model_matrix,
     precompute_triangle_data,
     tensors_to,
 )
@@ -74,6 +75,14 @@ class Renderer:
             self.model,
         )
         return rgb
+
+    def set_model(self, model) -> None:
+        """Set the per-frame (4, 4) or (3, 4) model matrix that step()
+        applies to the scene (None: no transform). The matrix goes to the
+        renderer's device once, here, as float32; reprojection follows the
+        motion because the history carries the last frame's moved LUT
+        (frame.render_frame_impl)."""
+        self.model = None if model is None else model_matrix(model, self.device)
 
     def render(self, num_frames: int) -> torch.Tensor:
         """Render ``num_frames`` and return the last frame."""

@@ -66,11 +66,25 @@ class LBVH(NamedTuple):
         return self.leaf_prim.shape[0]
 
 
+class RefitPlan(NamedTuple):
+    """What a refit of the tree's boxes reads besides the moved triangles,
+    made once per scene on the host: each triangle's leaf slot and each
+    node row's slot in its parent row, as 2 * parent row + side (side 0 is
+    the left child), and -1 for the root. A one-triangle scene's root holds
+    the triangle on both sides; its leaf slot is 0."""
+
+    leaf_slot: torch.Tensor  # (T,) int32, by triangle index
+    row_slot: torch.Tensor   # (max(T-1, 1),) int32, by node row
+    levels: int              # levels of node rows, the root's included
+
+
 class PackedBVH(NamedTuple):
-    """The device-side tree: what the plain and the CUDA walks read."""
+    """The device-side tree: what the plain and the CUDA walks read, and
+    the plan of its refit (:func:`refit_nodes_plain`)."""
 
     nodes: torch.Tensor  # (max(T-1, 1), 16) float32, child ids as int32 bits
     tris: torch.Tensor   # (T, 12) float32 triangle-test rows, original order
+    plan: RefitPlan
 
 
 def morton_codes_np(centroids) -> np.ndarray:
@@ -159,12 +173,7 @@ def build_lbvh(triangles) -> LBVH:
     left = np.where(first == gamma, (num - 1) + gamma, gamma)
     right = np.where(last == gamma + 1, (num - 1) + gamma + 1, gamma + 1)
 
-    aabb_min = np.concatenate([np.zeros((num - 1, 3), np.float32), smin])
-    aabb_max = np.concatenate([np.zeros((num - 1, 3), np.float32), smax])
-    for level in reversed(_internal_levels(left, right, num)):
-        lc, rc = left[level], right[level]
-        aabb_min[level] = np.minimum(aabb_min[lc], aabb_min[rc])
-        aabb_max[level] = np.maximum(aabb_max[lc], aabb_max[rc])
+    aabb_min, aabb_max = _node_boxes(left, right, smin, smax)
     return LBVH(
         left=left.astype(np.int32),
         right=right.astype(np.int32),
@@ -172,6 +181,27 @@ def build_lbvh(triangles) -> LBVH:
         aabb_min=aabb_min,
         aabb_max=aabb_max,
     )
+
+
+def _node_boxes(left, right, leaf_min, leaf_max) -> tuple[np.ndarray, np.ndarray]:
+    """The (2T-1, 3) node boxes over the leaves' boxes (sorted order),
+    bottom-up over the tree's levels."""
+    num = leaf_min.shape[0]
+    aabb_min = np.concatenate([np.zeros((num - 1, 3), np.float32), leaf_min])
+    aabb_max = np.concatenate([np.zeros((num - 1, 3), np.float32), leaf_max])
+    for level in reversed(_internal_levels(left, right, num)):
+        lc, rc = left[level], right[level]
+        aabb_min[level] = np.minimum(aabb_min[lc], aabb_min[rc])
+        aabb_max[level] = np.maximum(aabb_max[lc], aabb_max[rc])
+    return aabb_min, aabb_max
+
+
+def refit_lbvh(bvh: LBVH, triangles) -> LBVH:
+    """``bvh``'s tree with its boxes recomputed over ``triangles`` (the same
+    triangles moved): the host's oracle of :func:`refit_nodes_plain`."""
+    tris = np.asarray(triangles, np.float32)[bvh.leaf_prim]
+    aabb_min, aabb_max = _node_boxes(bvh.left, bvh.right, tris.min(axis=1), tris.max(axis=1))
+    return bvh._replace(aabb_min=aabb_min, aabb_max=aabb_max)
 
 
 def _internal_levels(left, right, num) -> list[np.ndarray]:
@@ -196,8 +226,7 @@ def pack_bvh_nodes(bvh: LBVH | None, triangles) -> np.ndarray:
     triangle) packs a root whose two children are that triangle. Raises if
     the tree is too deep for a walk's stack."""
     tris = np.asarray(triangles, np.float32)
-    scale = max(1.0, float(np.abs(tris).max()))
-    pad = np.float32(BOX_PAD * scale)
+    pad = box_pad(torch.tensor(tris)).numpy()
     if bvh is None:
         lo, hi = tris.min(axis=1) - pad, tris.max(axis=1) + pad
         boxes = np.concatenate([lo, hi, lo, hi], axis=1)
@@ -222,6 +251,60 @@ def pack_bvh_nodes(bvh: LBVH | None, triangles) -> np.ndarray:
     nodes = np.zeros((boxes.shape[0], NODE_WORDS), np.float32)
     nodes[:, :12] = boxes
     nodes.view(np.int32)[:, 12:14] = children
+    return nodes
+
+
+def refit_plan(bvh: LBVH | None, num: int, device=None) -> RefitPlan:
+    """The :class:`RefitPlan` of ``bvh`` over ``num`` triangles (``bvh``
+    None: the one-triangle root of :func:`pack_bvh_nodes`)."""
+    if bvh is None:
+        leaf_slot, row_slot, levels = np.zeros(1), np.full(1, -1), 1
+    else:
+        rows = np.arange(num - 1)
+        slot = np.full(2 * num - 1, -1, np.int64)  # by node id; the root is 0
+        slot[bvh.left] = 2 * rows
+        slot[bvh.right] = 2 * rows + 1
+        leaf_slot = np.empty(num, np.int64)
+        leaf_slot[bvh.leaf_prim] = slot[num - 1:]
+        row_slot, levels = slot[:num - 1], tree_depth(bvh)
+    return RefitPlan(*(torch.tensor(a, dtype=torch.int32, device=device)
+                       for a in (leaf_slot, row_slot)), levels)
+
+
+def box_pad(triangles: torch.Tensor) -> torch.Tensor:
+    """The boxes' padding over the (T, 3, 3) ``triangles``, on their device:
+    float32(BOX_PAD * max(1, max |v|)), the product taken in float64 (as
+    csrc/model.cu bvh_refit_kernel takes it)."""
+    scale = torch.clamp_min(triangles.abs().amax(), 1.0)
+    return (scale.double() * BOX_PAD).float()
+
+
+def refit_nodes_plain(bvh: PackedBVH, triangles: torch.Tensor) -> torch.Tensor:
+    """The node table of ``bvh``'s tree with its boxes recomputed over
+    ``triangles`` (T, 3, 3), the scene's triangles moved: a leaf child's box
+    is its triangle's, an internal child's the union of its row's two
+    boxes, each padded by :func:`box_pad` of the moved triangles. Rounding
+    is monotone, so the union of padded boxes is the padded union, and the
+    table equals ``pack_bvh_nodes(refit_lbvh(tree, triangles), triangles)``
+    bit for bit. The plain version of csrc/model.cu bvh_refit_kernel: a
+    pass over every row writes each row's union into its parent's slot,
+    and after levels - 1 passes every slot holds its subtree's box."""
+    rows = bvh.nodes.shape[0]
+    pad = box_pad(triangles)
+    leaf = torch.cat([triangles.amin(1) - pad, triangles.amax(1) + pad], dim=1)
+    # one spare slot takes the root's union, which no row holds
+    boxes = torch.zeros((2 * rows + 1, 6), dtype=torch.float32, device=triangles.device)
+    boxes[bvh.plan.leaf_slot.long()] = leaf
+    if triangles.shape[0] == 1:
+        boxes[1] = leaf[0]
+    row_slot = bvh.plan.row_slot.long()
+    row_slot = torch.where(row_slot < 0, 2 * rows, row_slot)
+    for _ in range(bvh.plan.levels - 1):
+        pair = boxes[:2 * rows].view(rows, 2, 6)
+        boxes[row_slot] = torch.cat([torch.minimum(pair[:, 0, :3], pair[:, 1, :3]),
+                                     torch.maximum(pair[:, 0, 3:], pair[:, 1, 3:])], dim=1)
+    nodes = bvh.nodes.clone()
+    nodes[:, :12] = boxes[:2 * rows].view(rows, 12)
     return nodes
 
 

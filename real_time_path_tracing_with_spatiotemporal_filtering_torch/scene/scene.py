@@ -6,7 +6,9 @@ in place. Here the frame inputs are frozen dataclasses of tensors.
 ``TriangleData`` is the device-resident, precomputed form: intersection
 planes, per-triangle unit normals, albedos, and the (T+1, 3, 3) visibility
 LUT (slot 0 reserved for background, visibility.geom.glsl:32-35). The tables
-are built once on the host with numpy and copied to the device.
+are built once on the host and copied to the device; under a per-frame model
+matrix they are rebuilt from the moved vertices on the device
+(:func:`transform_triangle_data`).
 """
 
 from __future__ import annotations
@@ -16,8 +18,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.camera import (
+    cross3,
+    dot3,
+    mat_apply,
+)
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.intersect import (
     TrianglePlanes,
+)
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.shading import (
+    albedo_from_normal,
 )
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import lbvh
 
@@ -151,42 +161,47 @@ class TriangleData:
         return self.normals.shape[0]
 
 
-def _base_tables_np(tris: np.ndarray) -> dict:
-    """All tables from (T, 3, 3) vertices, as float32 numpy arrays keyed
-    like :func:`triangle_data_from_numpy` takes them. Within 1 ulp of the
-    JAX package's jnp build (its cross products use FMA, numpy's do not)."""
-    tris = np.asarray(tris, np.float32)
+def triangle_tables(tris: torch.Tensor) -> dict:
+    """All tables from (T, 3, 3) float32 vertices, on their device, keyed
+    like :func:`triangle_data_from_numpy` takes them, plus the LBVH's
+    triangle-test rows ``tests`` (scene/lbvh.pack_triangle_tests). Each
+    3-term sum is (a + b) + c, the cross products are np.cross's, and the
+    square root is rounded once (through float64: PyTorch's float32 square
+    root on the CPU is not always the nearest), so the host's build of the
+    rest pose, the plain move and csrc/model.cu compute the same bits.
+    Within 1 ulp of the JAX package's jnp build (its cross products use
+    FMA)."""
     v0 = tris[:, 0, :]
     e1 = tris[:, 1, :] - v0
     e2 = tris[:, 2, :] - v0
-    n = np.cross(e1, e2)
-    inv_nn = (np.float32(1.0) / np.sum(n * n, axis=-1, keepdims=True)).astype(
-        np.float32
-    )
-    n1 = np.cross(e2, n) * inv_nn
-    n2 = np.cross(n, e1) * inv_nn
-    normals = n / np.sqrt(np.sum(n * n, axis=-1, keepdims=True))
-    nx = normals[:, 0]
-    albedo = np.where(
-        (nx > 0.99)[:, None],
-        np.array([1.0, 0.0, 0.0], np.float32),
-        np.where(
-            (nx < -0.99)[:, None],
-            np.array([0.0, 1.0, 0.0], np.float32),
-            np.array([0.7, 0.7, 0.7], np.float32),
-        ),
-    )
+    n = cross3(e1, e2)
+    nn = dot3(n, n)[:, None]
+    inv_nn = torch.ones_like(nn) / nn
+    n1 = cross3(e2, n) * inv_nn
+    n2 = cross3(n, e1) * inv_nn
+    normals = n / torch.sqrt(nn.double()).float()
+    d0, d1, d2 = dot3(n, v0), -dot3(n1, v0), -dot3(n2, v0)
+    background = torch.zeros_like(normals[:1])  # the sentinel normal (0, 0, 1)
+    background[:, 2] = 1.0
     return dict(
-        v0=v0, e1=e1, e2=e2, n=n,
-        d0=np.sum(n * v0, axis=-1),
-        n1=n1, d1=-np.sum(n1 * v0, axis=-1),
-        n2=n2, d2=-np.sum(n2 * v0, axis=-1),
+        v0=v0, e1=e1, e2=e2, n=n, d0=d0, n1=n1, d1=d1, n2=n2, d2=d2,
         normals=normals,
-        albedo=albedo,
-        lut=np.concatenate([np.zeros((1, 3, 3), np.float32), tris], axis=0),
-        lut_normals=np.concatenate(
-            [np.array([[0.0, 0.0, 1.0]], np.float32), normals], axis=0
-        ),
+        albedo=albedo_from_normal(normals),
+        lut=torch.cat([torch.zeros_like(tris[:1]), tris]),
+        lut_normals=torch.cat([background, normals]),
+        tests=torch.cat([n, d0[:, None], n1, d1[:, None], n2, d2[:, None]], dim=1),
+    )
+
+
+def from_tables(tables: dict, bvh: lbvh.PackedBVH) -> TriangleData:
+    """TriangleData of the tensors of :func:`triangle_tables` and ``bvh``."""
+    return TriangleData(
+        planes=TrianglePlanes(*(tables[f] for f in TrianglePlanes._fields)),
+        normals=tables["normals"],
+        albedo=tables["albedo"],
+        lut=tables["lut"],
+        lut_normals=tables["lut_normals"],
+        bvh=bvh,
     )
 
 
@@ -195,20 +210,16 @@ def triangle_data_from_numpy(arrays: dict, device=None) -> TriangleData:
     ``e1``, ``e2``, ``n``, ``d0``, ``n1``, ``d1``, ``n2``, ``d2``) and
     ``normals``, ``albedo``, ``lut``, ``lut_normals`` -- the leaves of the
     JAX package's TriangleData, so its tables can be fed to this package.
-    The LBVH is built here from the LUT's triangles."""
+    The LBVH and its refit plan are built here from the LUT's triangles."""
     tris = np.asarray(arrays["lut"], np.float32)[1:]
-    nodes = lbvh.pack_bvh_nodes(lbvh.build_lbvh(tris) if len(tris) >= 2 else None, tris)
+    tree = lbvh.build_lbvh(tris) if len(tris) >= 2 else None
+    nodes = lbvh.pack_bvh_nodes(tree, tris)
     tests = lbvh.pack_triangle_tests(*(arrays[f] for f in ("n", "d0", "n1", "d1", "n2", "d2")))
-    return TriangleData(
-        planes=TrianglePlanes(
-            *(_f32(arrays[f], device) for f in TrianglePlanes._fields)
-        ),
-        normals=_f32(arrays["normals"], device),
-        albedo=_f32(arrays["albedo"], device),
-        lut=_f32(arrays["lut"], device),
-        lut_normals=_f32(arrays["lut_normals"], device),
-        bvh=lbvh.PackedBVH(nodes=_f32(nodes, device), tris=_f32(tests, device)),
-    )
+    tables = {k: _f32(arrays[k], device) for k in (*TrianglePlanes._fields, "normals", "albedo",
+                                                  "lut", "lut_normals")}
+    return from_tables(tables, lbvh.PackedBVH(nodes=_f32(nodes, device),
+                                                 tris=_f32(tests, device),
+                                                 plan=lbvh.refit_plan(tree, len(tris), device)))
 
 
 def precompute_triangle_data(scene: Scene, device=None, albedo=None) -> TriangleData:
@@ -222,10 +233,49 @@ def precompute_triangle_data(scene: Scene, device=None, albedo=None) -> Triangle
         # empty scene: one degenerate triangle (zero area -> its plane
         # normal is 0, so every intersection test rejects it) renders sky
         scene = Scene.from_arrays(np.zeros((3, 3)), np.array([[0, 1, 2]]))
-    arrays = _base_tables_np(scene.triangles)
+    arrays = {k: v.numpy() for k, v in triangle_tables(torch.from_numpy(scene.triangles)).items()}
     if albedo is not None:
         albedo = np.asarray(albedo, np.float32)
         if albedo.shape != (scene.num_triangles, 3):
             raise ValueError(f"albedo must be (T, 3), got {albedo.shape}")
         arrays["albedo"] = albedo
     return triangle_data_from_numpy(arrays, device)
+
+
+def model_matrix(model, device) -> torch.Tensor:
+    """``model`` as a float32 (4, 4) or (3, 4) tensor on ``device``: no copy
+    when it is one already. Raises on another shape."""
+    m = torch.as_tensor(model, dtype=torch.float32, device=device)
+    if tuple(m.shape) not in ((4, 4), (3, 4)):
+        raise ValueError(f"the model matrix must be (4, 4) or (3, 4), got {tuple(m.shape)}")
+    return m.contiguous()
+
+
+def transform_triangle_data(tri_data: TriangleData, model, refit: bool = True) -> TriangleData:
+    """The tables of the scene moved by a per-frame model matrix, from the
+    rest pose's ``tri_data`` (the JAX package's transform_triangle_data).
+
+    The reference carries ``model``/``modelPrev`` in its UBO and applies
+    them in the visibility vertex shader (visibility.vert.glsl:22-24,
+    main.cpp:1465-1469). ``model`` is a (4, 4) or (3, 4) row-major matrix,
+    applied as ``p' = M[:3, :3] @ p + M[:3, 3]`` to ``lut[1:]`` by
+    ops/camera.mat_apply, each coordinate ((m0 x + m1 y) + m2 z) + m3 as
+    csrc/model.cu computes it (a matrix product would leave the order to
+    the library); every table is rebuilt from the moved vertices
+    (:func:`triangle_tables`), and the albedo is re-keyed from the new
+    normals, as the reference keys it at trace time
+    (raytrace.comp.glsl:155-163). So, as in the JAX package, a custom
+    ``albedo=`` given to :func:`precompute_triangle_data` is dropped under a
+    model. With ``refit`` the LBVH keeps the rest pose's tree with its boxes
+    refitted over the moved triangles (scene/lbvh.refit_nodes_plain): the
+    walks commit the least (t, prim), so any valid tree gives the same
+    hits. Without it the rest pose's boxes stay, for a frame that walks no
+    tree (pipeline/frame.walks_tree). ``History.lut`` then carries the
+    previous frame's moved vertices, which reprojection and the temporal
+    gradient read. The plain version of ops/cuda/model.transform_triangle_data's
+    two kernels; ``model = identity`` reproduces the rest pose's tables."""
+    model = model_matrix(model, tri_data.lut.device)
+    tris = mat_apply(model[:3], tri_data.lut[1:])
+    tables = triangle_tables(tris)
+    nodes = lbvh.refit_nodes_plain(tri_data.bvh, tris) if refit else tri_data.bvh.nodes
+    return from_tables(tables, tri_data.bvh._replace(nodes=nodes, tris=tables["tests"]))

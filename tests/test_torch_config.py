@@ -110,8 +110,11 @@ def test_extension_flag_matches_jax(cornell_tri_data, name, kwargs):
 
 
 def test_model_matrix_raises():
-    with pytest.raises(NotImplementedError, match="model matrix.*ROADMAP"):
-        frame.check_supported(RenderConfig(), model=torch.eye(4))
+    """A model matrix that is neither (4, 4) nor (3, 4) is refused."""
+    r = Renderer(Scene.cornell_box(), RenderConfig(width=8, height=8), device="cpu")
+    with pytest.raises(ValueError, match="model matrix"):
+        frame.render_frame_impl(r.tri_data, r.camera, r.light, r.history, r.cfg,
+                                model=torch.eye(3))
 
 
 def test_pallas_backend_on_cpu_raises():
@@ -162,7 +165,7 @@ def test_nvcc_flags():
     assert "-ftz=true" not in flags
     assert "--fmad=false" in flags
     assert {os.path.basename(s) for s in _build.sources()} == {
-        "geometry.cu", "pathtrace.cu", "atrous.cu", "wavefront.cu", "micro.cu"
+        "geometry.cu", "pathtrace.cu", "atrous.cu", "wavefront.cu", "micro.cu", "model.cu"
     }
 
 

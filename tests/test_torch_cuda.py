@@ -28,6 +28,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import 
     atrous as cuda_atrous,
     geometry as cuda_geometry,
     micro as cuda_micro,
+    model as cuda_model,
     pathtrace as cuda_pathtrace,
     wavefront as cuda_wavefront,
 )
@@ -766,3 +767,59 @@ def test_bench_and_quick_suite_row_run_on_the_card(dev):
                                      device_time=True)
     assert row == "cornell_512_spatial_only"
     assert np.isfinite(result["ms"]) and result["device_ms"] > 0 and result["launches"] > 0
+
+
+# --- the per-frame model matrix: the move's two kernels ---
+
+MODEL_POSES = {
+    "identity": np.eye(4, dtype=np.float32),
+    "rotation_0": chip_smoke.model_rotation(0.0),
+    "rotated": chip_smoke.model_rotation(4 * chip_smoke.MODEL_STEP),
+}
+
+
+@pytest.mark.parametrize("pose", list(MODEL_POSES))
+@pytest.mark.parametrize("tris", [32, 128, 32768])
+def test_model_kernels_equal_plain(dev, tris, pose):
+    """transform_tables and bvh_refit equal their plain versions bit for
+    bit (the node table as bits: its child ids are NaN as floats), the
+    refitted table the host's pack of the rest tree over the moved
+    triangles; at identity the move gives the rest pose's tables."""
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import lbvh, procedural
+
+    splits = chip_smoke.MODEL_SCENES[tris]
+    verts, idx = procedural.cornell_box() if splits is None else procedural.subdivided_cornell(splits)
+    td = precompute_triangle_data(Scene.from_arrays(verts, idx), dev)
+    m = torch.tensor(MODEL_POSES[pose], device=dev)
+    tables, workspace = cuda_model.transform_tables(td, m)
+    want, coord_max = cuda_model.transform_tables_plain(td, m)
+    for k in cuda_model.TABLES:
+        assert torch.equal(tables[k], want[k]), k
+    assert torch.equal(workspace[:1].view(torch.float32)[0], coord_max)
+    nodes = cuda_model.bvh_refit(td.bvh, tables["lut"], workspace).view(torch.int32)
+    assert torch.equal(nodes, cuda_model.bvh_refit_plain(td.bvh, want["lut"][1:]).view(torch.int32))
+    moved = want["lut"][1:].cpu().numpy()
+    host = lbvh.pack_bvh_nodes(lbvh.refit_lbvh(lbvh.build_lbvh(verts[idx]), moved), moved)
+    np.testing.assert_array_equal(nodes.cpu().numpy(), host.view(np.int32))
+    if pose == "identity":
+        assert torch.equal(tables["lut"], td.lut) and torch.equal(tables["tests"], td.bvh.tris)
+        assert torch.equal(nodes, td.bvh.nodes.view(torch.int32))
+
+
+@pytest.mark.parametrize("splits", [None, 2], ids=["dense", "lbvh"])
+def test_identity_model_kernel_route_bit_identical(dev, splits):
+    """On the kernel route an identity model gives frames bit-identical to
+    no model, and launches the move's kernels a frame: the refit only on
+    the scene that walks the LBVH."""
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import procedural
+
+    scene = (Scene.cornell_box() if splits is None
+             else Scene.from_arrays(*procedural.subdivided_cornell(splits)))
+    cfg = RenderConfig(width=160, height=128, max_bounces=8)
+    plain, still = Renderer(scene, cfg, device=dev), Renderer(scene, cfg, device=dev)
+    still.set_model(np.eye(4))
+    _build.LAUNCHES.clear()
+    for _ in range(3):
+        assert torch.equal(still.step(), plain.step())
+    assert _build.LAUNCHES["transform_tables"] == 3
+    assert _build.LAUNCHES["bvh_refit"] == (0 if splits is None else 3)
