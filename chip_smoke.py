@@ -56,6 +56,18 @@ filtering_torch/csrc`` with nvcc, then:
   Cornell box) and MA (path A's scene and config under a fixed camera),
   their scene rotating 0.08 rad a frame by ``Renderer.set_model`` (4 frames
   at 1920x1080);
+- drives the app path (app_phase): ``cli_torch.main`` at the CLI's
+  defaults (1000x800, 32 bounces, 9 iterations; 16 frames with the light
+  orbiting, then 8 checkpointed and 8 resumed, bit-equal to the straight
+  run's frame 15), the native and Python OBJ loaders on the 32,768-triangle
+  subdivided box (equal arrays), ``cli_torch.main`` on that OBJ at
+  1920x1080 with path C's flags (8 frames), the viewer headless at its
+  default 320x256 with ``--ramp --nee`` (8 frames), ``apply_keys`` on the
+  card under ``torch.cuda.set_sync_debug_mode("error")``, the six quality
+  bars of ``benchmarks/quality.BARS`` (the JAX package's
+  tests/test_quality.py) with their rMSE and improvement, and the three
+  ``examples/*_torch.py`` as subprocesses; the launch counts of the cli,
+  cli_obj, viewer and quality paths join the others;
 - checks the eight micro-kernels (csrc/micro.cu, the JAX package's Mosaic
   micro-benchmarks) against their plain twins at two iteration counts, bit
   for bit on the output and every carry, then runs the port's
@@ -275,6 +287,25 @@ def share_outside(a, b, atol: float, rtol: float = 0.0) -> float:
 
 def max_abs(a, b) -> float:
     return (a.double() - b.double()).abs().max().item()
+
+
+def routes_agree(label: str, a, b, shape) -> float:
+    """Hold a kernel-route image ``a`` to its plain-route twin ``b`` by the
+    paths' gate: both finite, ``a`` of ``shape``, at least 99% of the
+    values within 1e-3 and a mean abs difference of at most 1e-4. Prints
+    the comparison and returns the max abs difference."""
+    import torch
+
+    torch.cuda.synchronize()
+    bad = share_outside(a, b, 1e-3)
+    mean = (a - b).abs().mean().item()
+    err = max_abs(a, b)
+    finite = bool(torch.isfinite(a).all().item() and torch.isfinite(b).all().item())
+    print(f"{label}: kernel vs plain max_abs {err:.3e}, share > 1e-3 {bad:.3e}, "
+          f"mean abs {mean:.3e}, finite {finite}")
+    check(finite and tuple(a.shape) == tuple(shape), f"{label} finite, shape {tuple(shape)}")
+    check(bad <= 0.01 and mean <= 1e-4, f"{label} kernel route within 1e-3 on >= 99%")
+    return err
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -756,8 +787,6 @@ def sequence_phase(pt, dev) -> dict:
     """16 default-config frames through Renderer.step() on both routes; the
     light and camera move from frame 8 on. Returns the kernel launch counts
     of the kernel route."""
-    import torch
-
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import LAUNCHES
 
     scene = pt.Scene.cornell_box()
@@ -770,16 +799,7 @@ def sequence_phase(pt, dev) -> dict:
             for r in (r_k, r_p):
                 r.move_light(dx=0.05)
                 r.move_camera(dx=0.01)
-        a = r_k.step()
-        b = r_p.step()
-        torch.cuda.synchronize()
-        bad = share_outside(a, b, 1e-3)
-        mean = (a - b).abs().mean().item()
-        finite = bool(torch.isfinite(a).all().item() and torch.isfinite(b).all().item())
-        print(f"frame {f:2d}: kernel vs plain max_abs {max_abs(a, b):.3e}, "
-              f"share > 1e-3 {bad:.3e}, mean abs {mean:.3e}, finite {finite}")
-        check(finite and tuple(a.shape) == (HEIGHT, WIDTH, 3), f"frame {f} finite, shape (H, W, 3)")
-        check(bad <= 0.01 and mean <= 1e-4, f"frame {f} kernel route within 1e-3 on >= 99%")
+        routes_agree(f"frame {f}", r_k.step(), r_p.step(), (HEIGHT, WIDTH, 3))
     counts = dict(LAUNCHES)
     print(f"launch counts over {FRAMES} frames: {counts}")
     expected = {"geometry": FRAMES, "trace": FRAMES, "atrous_iter": 9 * FRAMES,
@@ -792,8 +812,6 @@ def preset_sequence_phase(pt, dev, name: str) -> dict:
     """8 frames of a preset at 1920x1080 through Renderer.step() on both
     routes; the light and camera move from frame 4 on. Returns the kernel
     launch counts of the kernel route."""
-    import torch
-
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import LAUNCHES
 
@@ -807,16 +825,7 @@ def preset_sequence_phase(pt, dev, name: str) -> dict:
             for r in (r_k, r_p):
                 r.move_light(dx=0.05)
                 r.move_camera(dx=0.01)
-        a = r_k.step()
-        b = r_p.step()
-        torch.cuda.synchronize()
-        bad = share_outside(a, b, 1e-3)
-        mean = (a - b).abs().mean().item()
-        finite = bool(torch.isfinite(a).all().item() and torch.isfinite(b).all().item())
-        print(f"{name} frame {f}: kernel vs plain max_abs {max_abs(a, b):.3e}, "
-              f"share > 1e-3 {bad:.3e}, mean abs {mean:.3e}, finite {finite}")
-        check(finite and tuple(a.shape) == (h, w, 3), f"{name} frame {f} finite, shape (H, W, 3)")
-        check(bad <= 0.01 and mean <= 1e-4, f"{name} frame {f} kernel route within 1e-3 on >= 99%")
+        routes_agree(f"{name} frame {f}", r_k.step(), r_p.step(), (h, w, 3))
     counts = dict(LAUNCHES)
     print(f"{name} launch counts over {PRESET_FRAMES} frames: {counts}")
     expected = {"geometry": PRESET_FRAMES, "trace": PRESET_FRAMES,
@@ -1743,8 +1752,6 @@ def advance(pt, r, path: str, f: int, dev) -> None:
 def large_sequence_phase(pt, dev, path: str) -> dict:
     """Frames of a large-scene, gradient or moved-scene path through
     Renderer.step() on both routes; returns the kernel launch counts."""
-    import torch
-
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import LAUNCHES
 
     _, _, frames, (w, h) = PATHS[path]
@@ -1755,16 +1762,7 @@ def large_sequence_phase(pt, dev, path: str) -> dict:
     for f in range(frames):
         for r in (r_k, r_p):
             advance(pt, r, path, f, dev)
-        a = r_k.step()
-        b = r_p.step()
-        torch.cuda.synchronize()
-        bad = share_outside(a, b, 1e-3)
-        mean = (a - b).abs().mean().item()
-        finite = bool(torch.isfinite(a).all().item() and torch.isfinite(b).all().item())
-        print(f"path {path} frame {f}: kernel vs plain max_abs {max_abs(a, b):.3e}, "
-              f"share > 1e-3 {bad:.3e}, mean abs {mean:.3e}, finite {finite}")
-        check(finite and tuple(a.shape) == (h, w, 3), f"path {path} frame {f} finite, shape (H, W, 3)")
-        check(bad <= 0.01 and mean <= 1e-4, f"path {path} frame {f} kernel route within 1e-3 on >= 99%")
+        routes_agree(f"path {path} frame {f}", r_k.step(), r_p.step(), (h, w, 3))
     counts = dict(LAUNCHES)
     expected = {k: frames * v for k, v in PER_FRAME[path].items()}
     print(f"path {path} ({r_k.tri_data.num_triangles} tris, {w}x{h}) launch counts over "
@@ -1816,6 +1814,342 @@ def large_timing_phase(pt, dev, card: str) -> None:
         print(f"ms/frame path {path} ({r.tri_data.num_triangles} tris) {size[0]}x{size[1]} "
               f"{route}: {ms:.3f} ({card})")
     print(f"large-scene timing phase: {time.time() - t_phase:.1f} s", flush=True)
+
+
+# The app path: the port's entry points at their own sizes, through the
+# kernels (cli_torch.py, the viewer, the OBJ loaders, benchmarks/quality.py
+# and the examples). Per-frame launches of each path: the CLI at its
+# defaults (the reference's 1000x800, 32 bounces, 9 iterations), the CLI on
+# the 32,768-triangle OBJ with path C's flags, the viewer at its default
+# 320x256 with --ramp --nee.
+APP_FRAMES = {"cli": 2 * FRAMES, "cli_obj": 8, "viewer": 8}
+APP_PER_FRAME = {
+    "cli": {"geometry": 1, "trace": 1, "atrous_iter": 9, "temporal_blend": 1},
+    "cli_obj": LARGE_PER_FRAME["C"],
+    "viewer": {"geometry": 1, "trace": 1, "atrous_iter_var": 9, "temporal_blend_ramp": 1},
+}
+APP_OBJ_SPLITS = 32
+CLI_OBJ_FLAGS = ["--width", str(BENCH_SIZE[0]), "--height", str(BENCH_SIZE[1]),
+                 "--gbuffer-primary", "--nee", "--max-bounces", "8", "--rr-start-bounce", "2",
+                 "--adaptive-alpha"]
+# The key sets apply_keys is driven with on the card: every binding, the
+# light's two wraps (light x as given) and opposing keys.
+KEY_SETS = [({k}, None) for k in "wasdqeijkluo"] + [
+    ({"l"}, 1.95), ({"j"}, -19.95), ({"j"}, 2.5), ({"a", "d", "w", "s", "l", "o"}, None)]
+
+
+def cli_run(label: str, argv: list, card: str):
+    """cli_torch.main(argv) in this process; prints its report (stderr)
+    under ``label`` beside the card line and returns its last frame and the
+    report."""
+    import contextlib
+    import io
+
+    import cli_torch
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rgb = cli_torch.main(argv)
+    for line in err.getvalue().splitlines():
+        print(f"  cli_torch {label}: {line} ({card})", flush=True)
+    return rgb, err.getvalue()
+
+
+# The two CLI runs whose difference times a frame (cli_per_frame).
+APP_TIMING_FRAMES = (10, 50)
+
+
+def cli_device_time(argv: list, frames: int) -> tuple:
+    """Device busy ms and kernel launches of a whole profiled run of
+    cli_torch.main(argv) over ``frames`` frames, set-up included."""
+    import contextlib
+    import io
+
+    import cli_torch
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling import (
+        busy_us,
+        profiled_kernels,
+    )
+
+    with contextlib.redirect_stderr(io.StringIO()):  # the run's own report
+        kernels = profiled_kernels(lambda: cli_torch.main([*argv, "--frames", str(frames)]), 1)
+    return busy_us(kernels) / 1e3, len(kernels)
+
+
+def cli_per_frame(argv: list) -> dict:
+    """A CLI run's device busy ms and launches a frame, the slope between
+    profiled runs of APP_TIMING_FRAMES frames (the set-up, which both runs
+    share, enters no frame), and the set-up's own, a profiled run of no
+    frame (the scene, its tables and the Renderer)."""
+    lo, hi = APP_TIMING_FRAMES
+    (ms_0, n_0), (ms_lo, n_lo), (ms_hi, n_hi) = (cli_device_time(argv, n) for n in (0, lo, hi))
+    return dict(device_ms_per_frame=(ms_hi - ms_lo) / (hi - lo),
+                launches_per_frame=(n_hi - n_lo) / (hi - lo),
+                setup_device_ms=ms_0, setup_launches=n_0)
+
+
+def cli_timing(path: str, argv: list, card: str, extra: tuple = ()) -> None:
+    """One JSON line for a CLI path: the CLI's own steady host-clock
+    ms/frame of an unprofiled run of APP_TIMING_FRAMES[1] frames (no PNGs)
+    and its cli_per_frame figures. ``extra``: flags of the path whose own
+    share of a frame is measured against a run without them."""
+    argv = list(argv)
+    _, report = cli_run(f"{path} timing",
+                        [*argv, *extra, "--frames", str(APP_TIMING_FRAMES[1])], card)
+    steady = re.search(r"first \(kernel build \+ first frame\) ([0-9.]+)s, steady ([0-9.]+) ms",
+                       report)
+    check(steady is not None, f"{path}: the CLI reports its steady ms/frame")
+    line = {"app_timing": path, "argv": " ".join([*argv, *extra]), "first_s": float(steady[1]),
+            "ms_per_frame": float(steady[2]), "frames_profiled": list(APP_TIMING_FRAMES),
+            **cli_per_frame([*argv, *extra])}
+    if extra:
+        without = cli_per_frame(argv)
+        line["share_of " + " ".join(extra)] = {
+            k: line[k] - without[k] for k in ("device_ms_per_frame", "launches_per_frame")}
+    line["device"] = card
+    print(json.dumps(line), flush=True)
+
+
+def app_twins(pt, dev, label: str, scene, cfg, frames: int, app_last, move=None) -> None:
+    """An app path's frames rendered again by a kernel-route and a
+    plain-route Renderer of its scene and config, with its motion
+    (``move(renderer, frame)``), each frame held to the paths' gate
+    (routes_agree); the app's own last frame ``app_last`` is held to the
+    plain route's last. The path's launch counts are read before."""
+    import torch
+
+    r_k = pt.Renderer(scene, cfg, device=dev)
+    r_p = pt.Renderer(scene, dataclasses.replace(cfg, backend="xla"), device=dev)
+    shape = (cfg.height, cfg.width, 3)
+    t0 = time.time()
+    for f in range(frames):
+        for r in (r_k, r_p):
+            if move is not None:
+                move(r, f)
+        a, b = r_k.step(), r_p.step()
+        routes_agree(f"{label} frame {f}", a, b, shape)
+    app_last = torch.as_tensor(app_last, device=dev)
+    routes_agree(f"{label}: the app's own last frame", app_last, b, shape)
+    print(f"{label}: the app's own last frame bit-equal to the kernel twin's "
+          f"{torch.equal(app_last, a)}; twins {time.time() - t0:.1f} s", flush=True)
+
+
+def check_app_counts(path: str, counts: dict) -> None:
+    frames = APP_FRAMES[path]
+    expected = {k: frames * v for k, v in APP_PER_FRAME[path].items()}
+    print(f"{path} launch counts over {frames} frames: {counts}")
+    check(counts == expected, f"{path} launch counts {expected}")
+
+
+def input_sync_check(pt, dev) -> int:
+    """apply_keys on the card, under torch.cuda.set_sync_debug_mode("error")
+    (it must not wait for the card), equal to apply_keys on the CPU for
+    every key set of KEY_SETS; returns the number of key sets."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline.input import (
+        apply_keys,
+    )
+
+    cfg = pt.RenderConfig()
+
+    def inputs(d, light_x):
+        light = pt.Light.default(d)
+        if light_x is not None:
+            light = dataclasses.replace(light,
+                                        position=torch.tensor([light_x, 1.0, -0.4], device=d))
+        return pt.Camera.default(d), light
+
+    for keys, light_x in KEY_SETS:
+        want = apply_keys(*inputs("cpu", light_x), keys, cfg)
+        cam, light = inputs(dev, light_x)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = apply_keys(cam, light, keys, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        same = got[2] == want[2] and all(
+            g.device == light.position.device and torch.equal(g.cpu(), w)
+            for g, w in ((got[0].position, want[0].position), (got[1].position, want[1].position)))
+        check(same, f"apply_keys {sorted(keys)} (light x {light_x}) on the card without a sync, "
+                    "equal to the CPU")
+    return len(KEY_SETS)
+
+
+def app_phase(pt, dev, card: str) -> dict:
+    """The app path on the card: cli_torch.main at its defaults (16 frames
+    with the light orbiting, PNGs every 8, then 8 frames checkpointed and 8
+    resumed, bit-equal to the straight run's frame 15), the native and
+    Python OBJ loaders on the 32,768-triangle subdivided box, cli_torch.main
+    on that OBJ with path C's flags, the viewer headless with --ramp --nee,
+    apply_keys under sync debug mode "error", the six quality bars of
+    benchmarks/quality.BARS, and the three examples/*_torch.py as
+    subprocesses. Each frame path is held to the plain route: the cli,
+    cli_obj and viewer frames through app_twins, each quality bar measured
+    again on the plain route with its frames, raw frame and truth compared.
+    Returns the launch counts of the cli, cli_obj, viewer and quality
+    paths."""
+    import contextlib
+    import io
+    import tempfile
+
+    import cli_torch
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch import viewer
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.benchmarks import quality
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.native import loader
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import LAUNCHES
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import obj, procedural
+
+    t_phase = time.time()
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # cli: the straight run, then the same frames checkpointed and resumed
+        seq, ck = os.path.join(tmp, "seq"), os.path.join(tmp, "ck.npz")
+        light = ["--orbit-light", "0.1"]
+        LAUNCHES.clear()
+        straight, _ = cli_run("cli straight", ["--frames", str(FRAMES), *light,
+                                               "--save-every", "8", "--out", seq], card)
+        cli_run("cli checkpoint", ["--frames", str(FRAMES // 2), *light, "--checkpoint", ck],
+                card)
+        resumed, _ = cli_run("cli resume", ["--frames", str(FRAMES // 2), *light,
+                                            "--resume", ck], card)
+        torch.cuda.synchronize()
+        paths["cli"] = dict(LAUNCHES)
+        check(bool(torch.isfinite(straight).all().item())
+              and tuple(straight.shape) == (HEIGHT, WIDTH, 3), "cli: frame finite, (H, W, 3)")
+        check(torch.equal(resumed, straight),
+              f"cli: the resumed run's last frame is bit-equal to the straight run's frame "
+              f"{FRAMES - 1} (max_abs {max_abs(resumed, straight):.3e})")
+        check(sorted(os.listdir(seq)) == ["frame_00000.png", "frame_00008.png"],
+              "cli: --save-every 8 wrote frames 0 and 8")
+        check_app_counts("cli", paths["cli"])
+        app_twins(pt, dev, "cli", pt.Scene.cornell_box(),
+                  cli_torch.build_config(cli_torch.parser().parse_args(light)), FRAMES, straight,
+                  move=lambda r, f: r.move_light(dx=0.1))
+        cli_timing("cli", [], card, extra=tuple(light))
+
+        # cli_obj: the 32,768-triangle OBJ through both loaders, then path C
+        scene_path = os.path.join(tmp, f"subdivided_cornell_{APP_OBJ_SPLITS}.obj")
+        procedural.write_obj(scene_path, *procedural.subdivided_cornell(APP_OBJ_SPLITS))
+        t0 = time.perf_counter()
+        loader.library()
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nv, ni = loader.load_obj(scene_path)
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pv, pi = obj.load_obj_python(scene_path)
+        t_python = time.perf_counter() - t0
+        print(f"OBJ loaders on {ni.shape[0]} triangles ({os.path.getsize(scene_path)} bytes): "
+              f"native {t_native:.4f} s (g++ build {t_build:.2f} s), python {t_python:.4f} s "
+              f"({card})", flush=True)
+        check(ni.shape == (32 * APP_OBJ_SPLITS ** 2, 3) and np.array_equal(nv, pv)
+              and np.array_equal(ni, pi), "native OBJ loader equals load_obj_python")
+        obj_argv = ["--scene", scene_path, *CLI_OBJ_FLAGS]
+        LAUNCHES.clear()
+        last, _ = cli_run("cli_obj", [*obj_argv, "--frames", str(APP_FRAMES["cli_obj"])], card)
+        torch.cuda.synchronize()
+        paths["cli_obj"] = dict(LAUNCHES)
+        check(bool(torch.isfinite(last).all().item())
+              and tuple(last.shape) == (BENCH_SIZE[1], BENCH_SIZE[0], 3),
+              "cli_obj: frame finite, (H, W, 3)")
+        check_app_counts("cli_obj", paths["cli_obj"])
+        app_twins(pt, dev, "cli_obj", pt.Scene.from_arrays(nv, ni),
+                  cli_torch.build_config(cli_torch.parser().parse_args(obj_argv)),
+                  APP_FRAMES["cli_obj"], last)
+        cli_timing("cli_obj", obj_argv, card)
+
+        # viewer: headless, preview into a buffer
+        args = viewer.parser().parse_args(["--headless", "--ramp", "--nee",
+                                           "--frames", str(APP_FRAMES["viewer"])])
+        buf = io.StringIO()
+        LAUNCHES.clear()
+        with contextlib.redirect_stdout(buf):
+            shown = viewer.run_viewer(args)
+        torch.cuda.synchronize()
+        paths["viewer"] = dict(LAUNCHES)
+        status = [ln for ln in buf.getvalue().splitlines() if ln.startswith("frame ")]
+        print(f"viewer {args.width}x{args.height} --ramp --nee: {status[-1] if status else ''} "
+              f"({card})", flush=True)
+        check(len(status) == APP_FRAMES["viewer"] and "▀" in buf.getvalue(),
+              f"viewer: {APP_FRAMES['viewer']} previews")
+        check_app_counts("viewer", paths["viewer"])
+        app_twins(pt, dev, "viewer", pt.Scene.cornell_box(), viewer.build_config(args),
+                  APP_FRAMES["viewer"], shown)
+
+        n = input_sync_check(pt, dev)
+        print(f"apply_keys: {n} key sets on the card without a sync", flush=True)
+
+        # the quality bars, then each again on the plain route
+        t0 = time.time()
+        LAUNCHES.clear()
+        got = {bar.name: quality.run_bar(bar, dev) for bar in quality.BARS}
+        torch.cuda.synchronize()
+        paths["quality"] = dict(LAUNCHES)
+        print(f"quality bars: {time.time() - t0:.1f} s ({card}); launches {paths['quality']}",
+              flush=True)
+        t0 = time.time()
+        for bar in quality.BARS:
+            k, p = got[bar.name], quality.run_bar(bar, dev, backend="xla")
+            print(json.dumps({"quality_bar": bar.name, "rmse_denoised": k["rmse_denoised"],
+                              "rmse_noisy_1spp": k["rmse_noisy_1spp"],
+                              "improvement": k["improvement"], "max_rmse": bar.max_rmse,
+                              "min_improvement": bar.min_improvement,
+                              "plain_route": {"rmse_denoised": p["rmse_denoised"],
+                                              "rmse_noisy_1spp": p["rmse_noisy_1spp"]},
+                              "jax_recorded": bar.recorded, "jax_recorded_at": bar.recorded_at,
+                              "device": card}), flush=True)
+            check(k["ok"], f"quality bar {bar.name}: rMSE {k['rmse_denoised']:.4f} <= "
+                           f"{bar.max_rmse}, improvement {k['improvement']:.2f} >= "
+                           f"{bar.min_improvement:.3f}")
+            k_img, p_img = k["images"], p["images"]
+            shape = tuple(k_img["noisy"].shape)
+            for f, (a, b) in enumerate(zip(k_img["frames"], p_img["frames"], strict=True)):
+                routes_agree(f"quality {bar.name} frame {f}", a, b, shape)
+            routes_agree(f"quality {bar.name} raw 1-spp frame", k_img["noisy"], p_img["noisy"],
+                         shape)
+            routes_agree(f"quality {bar.name} truth", torch.as_tensor(k_img["truth"]),
+                         torch.as_tensor(p_img["truth"]), shape)
+        print(f"quality bars on the plain route, held to the kernel route: "
+              f"{time.time() - t0:.1f} s ({card})", flush=True)
+
+        # the examples, as a user runs them, all three at once
+        root = os.path.dirname(os.path.abspath(__file__))
+        ex = os.path.join(root, "examples")
+        pngs = [os.path.join(tmp, "cornell.png"), os.path.join(tmp, "obj.png")]
+        runs = {
+            "render_cornell_torch.py": [pngs[0]],
+            "render_obj_torch.py": [scene_path, pngs[1], "--rr"],
+            "checkpoint_resume_torch.py": [],
+        }
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        t0 = time.time()
+        procs = {name: subprocess.Popen([sys.executable, os.path.join(ex, name), *argv],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True, env=env)
+                 for name, argv in runs.items()}
+        outs = {}
+        try:
+            for name, proc in procs.items():
+                outs[name] = proc.communicate(timeout=300)[0]
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for name, proc in procs.items():
+            print(f"example {name}: exit {proc.returncode}: {outs[name].strip()[-400:]}")
+        print(f"examples: {time.time() - t0:.1f} s ({card})", flush=True)
+        check(all(proc.returncode == 0 for proc in procs.values())
+              and all(os.path.exists(p) for p in pngs)
+              and "resume bit-identical" in outs["checkpoint_resume_torch.py"],
+              "examples: all three exit 0, both PNGs written, the resume bit-identical")
+    print(f"app phase: {time.time() - t_phase:.1f} s ({card})", flush=True)
+    return paths
 
 
 # The micro-kernels: each kernel's pallas_call line in the JAX package's
@@ -2009,6 +2343,7 @@ def main() -> int:
             paths[name] = preset_sequence_phase(pt, dev, name)
         for path in PATHS:
             paths[path] = large_sequence_phase(pt, dev, path)
+        paths.update(app_phase(pt, dev, card))
         micro_records, paths["mosaic_micro"] = micro_phase(dev)
         records += micro_records
         paths.update(suite_phase(dev))

@@ -76,6 +76,24 @@ def use_kernels(cfg: RenderConfig, device: torch.device) -> bool:
     return on_cuda
 
 
+def trace_noisy(tri_data: TriangleData, camera: Camera, light: Light, frame_idx,
+                cfg: RenderConfig, kernels: bool, primary=None) -> torch.Tensor:
+    """The frame's full-resolution noisy radiance (H, W, 3) outside
+    cfg.indirect_split: on the plain route (``kernels`` false) the plain
+    tracer; on the kernel route the segment tracer on scenes that walk the
+    LBVH and wherever a G-buffer ``primary`` seeds bounce 0, else the trace
+    kernel. benchmarks/quality traces its truth and its raw frame through
+    it, unseeded."""
+    if not kernels:
+        return pathtrace.path_trace_pass(tri_data, camera.position, light, frame_idx, cfg,
+                                         rotation=camera.rotation, primary=primary)
+    if primary is not None or intersect.uses_bvh(tri_data):
+        return cuda_wavefront.path_trace_wavefront(tri_data, camera.position, light, frame_idx,
+                                                   cfg, camera.rotation, primary=primary)
+    return cuda_pathtrace.path_trace_pass(tri_data, camera.position, light, frame_idx, cfg,
+                                          camera.rotation)
+
+
 def camera_matrices(camera, cfg: RenderConfig):
     """The reference's per-frame UBO matrices (main.cpp:1463-1475): the view
     (translate-only in the reference; general camera->world basis here) and
@@ -159,10 +177,7 @@ def render_frame_impl(
             rotation=camera.rotation, primary=primary,
         )
     else:
-        noisy = pathtrace.path_trace_pass(
-            tri_data, camera.position, light, frame_idx, cfg, rotation=camera.rotation,
-            primary=primary,
-        )
+        noisy = trace_noisy(tri_data, camera, light, frame_idx, cfg, False, primary)
     # before the clamp: the re-trace next frame is unclamped
     noisy_lum = atrous.luminance(noisy) if cfg.path_gradient else None
     if cfg.firefly_clamp:
@@ -237,14 +252,8 @@ def _render_frame_kernels(tri_data, camera, light, history, cfg: RenderConfig):
             trace_pass=cuda_wavefront.path_trace_wavefront,
             trace_fn=cuda_wavefront.trace_pixels_wavefront,
         )
-    elif large or cfg.gbuffer_primary:
-        noisy = cuda_wavefront.path_trace_wavefront(
-            tri_data, camera.position, light, frame_idx, cfg, camera.rotation, primary=primary
-        )
     else:
-        noisy = cuda_pathtrace.path_trace_pass(
-            tri_data, camera.position, light, frame_idx, cfg, camera.rotation
-        )
+        noisy = trace_noisy(tri_data, camera, light, frame_idx, cfg, True, primary)
     noisy_lum = atrous.luminance(noisy) if cfg.path_gradient else None
     if cfg.firefly_clamp:
         noisy = torch.clamp_max(noisy, cfg.firefly_clamp)

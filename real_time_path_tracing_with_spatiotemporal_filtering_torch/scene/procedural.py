@@ -8,6 +8,9 @@ independent quads (every face has its own 4 vertices), fan-triangulated to
 32 triangles in the same primitive order tinyobjloader produces -- primitive
 IDs must line up because the visibility LUT and temporal reprojection are
 keyed on them.
+
+Also synthetic stress scenes (subdivided boxes, random triangle soups) and
+an OBJ writer for loader round trips, each equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -75,6 +78,38 @@ def cornell_box() -> tuple[np.ndarray, np.ndarray]:
         indices.append((base, base + 1, base + 2))
         indices.append((base, base + 2, base + 3))
     return vertices.copy(), np.asarray(indices, np.int32)
+
+
+# The writer's header line. It names the JAX package so that both packages
+# write the same bytes for the same arrays.
+_OBJ_HEADER = "# generated by real_time_path_tracing_with_spatiotemporal_filtering_tpu"
+
+
+def write_obj(path: str, vertices: np.ndarray, indices: np.ndarray) -> None:
+    """Emit an OBJ file (quad-free, triangles as-is) for loader round trips:
+    ``%.6f`` coordinates and 1-based faces."""
+    lines = [_OBJ_HEADER]
+    for v in vertices:
+        lines.append(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}")
+    for tri in indices:
+        lines.append(f"f {tri[0] + 1} {tri[1] + 1} {tri[2] + 1}")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def random_soup(
+    num_triangles: int,
+    seed: int = 0,
+    extent: float = 1.0,
+    tri_size: float = 0.05,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Random triangle soup for traversal stress tests, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-extent, extent, (num_triangles, 1, 3))
+    offsets = rng.normal(0.0, tri_size, (num_triangles, 3, 3))
+    vertices = (centers + offsets).astype(np.float32).reshape(-1, 3)
+    indices = np.arange(num_triangles * 3, dtype=np.int32).reshape(-1, 3)
+    return vertices, indices
 
 
 def subdivided_cornell(splits: int) -> tuple[np.ndarray, np.ndarray]:

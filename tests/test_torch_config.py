@@ -139,7 +139,13 @@ def test_port_does_not_import_jax():
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.benchmarks.suite\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.benchmarks.mosaic_micro\n"
         "import real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.benchmarks.quality\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.native.loader\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline.input\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.scene.obj\n"
+        "import real_time_path_tracing_with_spatiotemporal_filtering_torch.viewer\n"
         "import bench_torch\n"
+        "import cli_torch\n"
         "from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets\n"
         "p.Renderer(p.Scene.cornell_box(), p.RenderConfig(width=8, height=8, max_bounces=2),"
         " device='cpu').step()\n"
@@ -148,6 +154,10 @@ def test_port_does_not_import_jax():
         " gbuffer_primary=True, nee=True).step()\n"
         "presets.cornell_stress(splits=4, device='cpu', width=8, height=8, max_bounces=2,"
         " adaptive_alpha=True, path_gradient=True, indirect_split=1).step()\n"
+        "cli_torch.main(['--device', 'cpu', '--width', '8', '--height', '8', '--frames', '1',"
+        " '--max-bounces', '2'])\n"
+        "real_time_path_tracing_with_spatiotemporal_filtering_torch.benchmarks.quality.run("
+        "8, 1, 1, max_bounces=2, device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('real_time_path_tracing_with_spatiotemporal_filtering_tpu')]\n"
         "assert not bad, bad\n"
