@@ -327,19 +327,23 @@ def record(name: str, source: str, replaces: str, **fields) -> dict:
                 library_ms=None, modes=[], **fields)
 
 
-def trace_tests(pt_mod, td, cam, light, frame_idx, cfg) -> int:
+def trace_tests(pt_mod, td, cam, light, frame_idx, cfg, row_offset: int = 0, rows=None) -> int:
     """Ray/triangle tests one trace launch runs on these inputs (counted by
-    the kernel itself), for the data-dependent bound."""
+    the kernel itself), for the data-dependent bound; over the row slab
+    ``row_offset``, ``rows`` when given."""
     import torch
 
-    tests = torch.zeros((cfg.height, cfg.width), dtype=torch.int32, device=td.lut.device)
-    pt_mod.path_trace_pass(td, cam.position, light, frame_idx, cfg, cam.rotation, tests=tests)
+    rows = cfg.height if rows is None else rows
+    tests = torch.zeros((rows, cfg.width), dtype=torch.int32, device=td.lut.device)
+    pt_mod.path_trace_pass(td, cam.position, light, frame_idx, cfg, cam.rotation, tests=tests,
+                           row_offset=row_offset, rows=rows)
     return int(tests.sum(dtype=torch.int64).item())
 
 
-def trace_bound(pt_mod, td, cam, light, frame_idx, cfg) -> dict:
-    tests = trace_tests(pt_mod, td, cam, light, frame_idx, cfg)
-    return bound(12 * cfg.width * cfg.height + 108 * td.num_triangles, TRI_TEST_OPS * tests)
+def trace_bound(pt_mod, td, cam, light, frame_idx, cfg, row_offset: int = 0, rows=None) -> dict:
+    tests = trace_tests(pt_mod, td, cam, light, frame_idx, cfg, row_offset, rows)
+    rows = cfg.height if rows is None else rows
+    return bound(12 * cfg.width * rows + 108 * td.num_triangles, TRI_TEST_OPS * tests)
 
 
 def lane_share(lanes) -> tuple:
@@ -434,34 +438,40 @@ def dense_geometry_bound(cfg, t: int, vis, tests: int, albedo: bool = False,
 
 
 def dense_geometry_fields(geo_mod, args, cfg, vis_only: bool = False,
-                          albedo: bool = False) -> dict:
+                          albedo: bool = False, row_offset: int = 0, rows=None) -> dict:
     """The work of one dense geometry launch on ``args`` (geometry_pass's,
     or visibility_pass's when ``vis_only``) from the kernel's counting
     launch, and its bound: the tests and survivors a pixel, checked
     against the cull's plain twin (ops/cuda/geometry.dense_counts_plain)
     bit for bit. ``bound_ms_untiled``: the bound of every triangle tested
-    for every pixel (the kernel before the cull)."""
+    for every pixel (the kernel before the cull). ``row_offset``, ``rows``:
+    a launch over that row slab."""
     import torch
 
     td = args[0]
     t = td.num_triangles
+    slab = dict(row_offset=row_offset, rows=rows)
     if vis_only:
-        run = lambda **kw: geo_mod.visibility_pass(*args, **kw)
+        run = lambda **kw: geo_mod.visibility_pass(*args, **slab, **kw)
         cam_pos, rot = args[1], args[5]
     else:
-        run = lambda **kw: geo_mod.geometry_pass(*args, emit_albedo=albedo, **kw)
+        run = lambda **kw: geo_mod.geometry_pass(*args, emit_albedo=albedo, **slab, **kw)
         cam_pos, rot = args[2], args[3]
-    counts = geo_mod.dense_counts(cfg, cam_pos.device)
+    rows = cfg.height if rows is None else rows
+    counts = geo_mod.dense_counts(cfg, cam_pos.device, rows)
     out = run(counts=counts)
-    want = geo_mod.dense_counts_plain(td, cam_pos, rot, cfg)
+    want = geo_mod.dense_counts_plain(td, cam_pos, rot, cfg, row_offset, rows)
     torch.cuda.synchronize()
-    check(torch.equal(counts, want), f"dense geometry counts {t} tris {cfg.width}x{cfg.height}: "
-                                     "tests and survivors equal the cull's plain twin")
+    check(torch.equal(counts, want), f"dense geometry counts {t} tris {cfg.width}x{cfg.height} "
+                                     f"rows {row_offset}..{row_offset + rows}: tests and "
+                                     "survivors equal the cull's plain twin")
     tests = int(counts[0].sum(dtype=torch.int64).item())
-    fields = dense_geometry_bound(cfg, t, out.visibility, tests, albedo, vis_only)
+    # the slab's pixels and warp tiles are those of a frame of its rows
+    part = dataclasses.replace(cfg, height=rows)
+    fields = dense_geometry_bound(part, t, out.visibility, tests, albedo, vis_only)
     fields["survivors_per_pixel"] = counts[1].double().mean().item()
     fields["bound_ms_untiled"] = dense_geometry_bound(
-        cfg, t, out.visibility, t * cfg.width * cfg.height, albedo, vis_only)["bound_ms"]
+        part, t, out.visibility, t * cfg.width * rows, albedo, vis_only)["bound_ms"]
     return fields
 
 
@@ -888,27 +898,35 @@ def walk_lane_fields(lanes, counts, rays: int) -> dict:
                 steps_per_ray=box / 2 / max(rays, 1))
 
 
-def geometry_bvh_bound(geo_mod, args, td, cfg) -> dict:
+def geometry_bvh_bound(geo_mod, args, td, cfg, vis_only: bool = False, row_offset: int = 0,
+                       rows=None) -> dict:
     """The bound of one LBVH geometry launch on ``args``: the output planes
     (44 B a pixel), the 56 parameters, the rows the walks read, and the hit
     position (v0, e1, e2), current and previous vertices and filter normal
     of each distinct committed triangle (120 B); with the lane counts of
-    the walks."""
+    the walks. ``vis_only``: the visibility-only mode on visibility_pass's
+    ``args`` (20 B a pixel, 36 B a committed triangle). ``row_offset``,
+    ``rows``: a launch over that row slab."""
     import torch
 
-    n = cfg.width * cfg.height
+    rows = cfg.height if rows is None else rows
+    n = cfg.width * rows
     counts = geo_mod.WalkCounts.zeros(n, td)
     lanes = torch.zeros(4, dtype=torch.int64, device=td.lut.device)
-    out = geo_mod.geometry_pass_bvh(*args, counts=counts, lanes=lanes)
+    run = geo_mod.visibility_pass if vis_only else geo_mod.geometry_pass_bvh
+    out = run(*args, counts=counts, lanes=lanes, row_offset=row_offset, rows=rows)
     committed = torch.unique(out.visibility[out.visibility > 0]).numel()
-    fields = walk_bound(counts, 44 * n + 224 + 120 * committed)
+    nbytes = (20 * n + 224 + 36 * committed) if vis_only else (44 * n + 224 + 120 * committed)
+    fields = walk_bound(counts, nbytes)
     return dict(fields, committed_tris=committed, **walk_lane_fields(lanes, counts, n))
 
 
-def path_c_shadow_rays(pt, geo_mod, td, cfg, cam, light, dev) -> tuple:
+def path_c_shadow_rays(pt, geo_mod, td, cfg, cam, light, dev, row_offset: int = 0,
+                      rows=None) -> tuple:
     """Path C's bounce-0 shadow rays at ``cfg``'s size, as the G-buffer seed
     makes them (ops/cuda/wavefront._seed_from_gbuffer, frame 5, batch 0,
-    sample 0): (origins, directions, caps, mask)."""
+    sample 0): (origins, directions, caps, mask); with ``row_offset`` and
+    ``rows``, those of the sharded frame's row slab."""
     import torch
 
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
@@ -917,14 +935,15 @@ def path_c_shadow_rays(pt, geo_mod, td, cfg, cam, light, dev) -> tuple:
         rng as rng_ops,
     )
 
-    w, h = cfg.width, cfg.height
-    geo = geo_mod.geometry_pass_bvh(*stress_geo_args(pt, td, cfg, dev), emit_albedo=True)
+    w, h = cfg.width, cfg.height if rows is None else rows
+    geo = geo_mod.geometry_pass_bvh(*stress_geo_args(pt, td, cfg, dev), emit_albedo=True,
+                                    row_offset=row_offset, rows=h)
     n = w * h
     idx = torch.arange(n, device=dev)
-    px, py = idx % w, torch.div(idx, w, rounding_mode="floor")
+    px, py = idx % w, torch.div(idx, w, rounding_mode="floor") + row_offset
     state, gx, gy = rng_ops.sample_jitter(px, py, 5, 0, 0)
-    dirs = cam_ops.pixel_rays(px, py, w, h, cfg.fov, jitter_x=0.0 * gx, jitter_y=0.0 * gy,
-                              rotation=cam.rotation)
+    dirs = cam_ops.pixel_rays(px, py, w, cfg.height, cfg.fov, jitter_x=0.0 * gx,
+                              jitter_y=0.0 * gy, rotation=cam.rotation)
     carry = plain_pt.primary_carry(
         cam.position.expand(n, 3), dirs, state, geo.visibility.reshape(n),
         geo.world_pos.reshape(n, 3), geo.normal.reshape(n, 3), geo.albedo.reshape(n, 3),
@@ -970,14 +989,16 @@ def stress_geo_args(pt, td, cfg, dev):
             light.color, light.color * 0.5, view, proj, view_p, proj_p, cfg)
 
 
-def segments_agree(wf, td, cfg, cam, light, frame_idx, label: str, only=None):
+def segments_agree(wf, td, cfg, cam, light, frame_idx, label: str, only=None,
+                   row_offset: int = 0, rows=None):
     """The segments of every sample of a frame (those in ``only``, or all),
     kernel against plain on the same input ray state, bit for bit, each
     launch after a sample's first on the live list the launch before wrote;
-    returns (max abs error, plain ms per segment)."""
+    returns (max abs error, plain ms per segment). ``row_offset``/``rows``:
+    the frame's row slab of the sharded frame (default: the whole frame)."""
     import torch
 
-    n = cfg.width * cfg.height
+    n = cfg.width * (cfg.height if rows is None else rows)
     rays = wf.RayState.empty(n, td.lut.device)
     lists = wf.LiveLists(n, td.lut.device)
     err, plain_s, launches = 0.0, 0.0, 0
@@ -986,11 +1007,13 @@ def segments_agree(wf, td, cfg, cam, light, frame_idx, label: str, only=None):
             for seg in range(cfg.max_bounces):
                 if only is not None and seg not in only:
                     wf.trace_segment(rays, seg, batch, sample, td, cam.position, cam.rotation,
-                                     light, frame_idx, cfg, first=seg == 0, lists=lists)
+                                     light, frame_idx, cfg, first=seg == 0, lists=lists,
+                                     row_offset=row_offset)
                     continue
                 plain = wf.RayState(*(t.clone() for t in rays))
                 wf.trace_segment(rays, seg, batch, sample, td, cam.position, cam.rotation,
-                                 light, frame_idx, cfg, first=seg == 0, lists=lists)
+                                 light, frame_idx, cfg, first=seg == 0, lists=lists,
+                                 row_offset=row_offset)
                 torch.cuda.synchronize()
                 listed = torch.sort(lists.last_list()).values
                 if not torch.equal(listed, torch.nonzero(rays.alive).squeeze(1).to(torch.int32)):
@@ -998,7 +1021,7 @@ def segments_agree(wf, td, cfg, cam, light, frame_idx, label: str, only=None):
                                  "list holds exactly the rays that go on")
                 t0 = time.perf_counter()
                 wf.trace_segment_plain(plain, seg, batch, sample, td, cam.position,
-                                       cam.rotation, light, frame_idx, cfg)
+                                       cam.rotation, light, frame_idx, cfg, None, row_offset)
                 torch.cuda.synchronize()
                 plain_s += time.perf_counter() - t0
                 launches += 1
@@ -1014,18 +1037,18 @@ def segments_agree(wf, td, cfg, cam, light, frame_idx, label: str, only=None):
 
 
 def frame_segments(wf, td, cfg, cam, light, frame_idx, counts=None, live=None, lanes=None,
-                   after=None):
+                   after=None, row_offset: int = 0, rows=None):
     """One 1-sample frame's segments on the card, launched as the host loop
     launches them (one SegmentLaunches), each launch after the first on the
     live list the launch before wrote. With ``live`` (a list), appends the
     number of live rays before each launch (a host read); ``after`` is
-    called after each launch."""
+    called after each launch. ``row_offset``, ``rows``: that row slab's."""
     import torch
 
-    n = cfg.width * cfg.height
+    n = cfg.width * (cfg.height if rows is None else rows)
     rays = wf.RayState.empty(n, td.lut.device)
     launch = wf.SegmentLaunches(rays, td, cam.position, cam.rotation, light, frame_idx, cfg,
-                                counts, lanes=lanes)
+                                counts, lanes=lanes, row_offset=row_offset)
     for seg in range(cfg.max_bounces):
         if live is not None:
             live.append(n if seg == 0 else int(rays.alive.sum(dtype=torch.int64).item()))
@@ -1076,25 +1099,37 @@ def segment_lane_eff(td, run, label: str) -> dict:
     return dict(ray_loop=loop, walks=walk)
 
 
-def segment_record_fields(wf, td, cfg, cam, light, frame_idx) -> dict:
-    """ms per launch of one frame's segments, and the frame's bound over
-    its launches: the kernel's counts, the ray-state bytes (a live ray
-    reads 52 and writes 56 bytes, a dead one reads its alive flag, segment
-    0 writes 56 per ray), the 18 parameters of each launch, and once per
-    frame the rows the walks read, with the hit position, normal and
-    albedo (60 B) of each triangle tested (a superset of those hit)."""
+def segment_bound(wf, td, cfg, cam, light, frame_idx, row_offset: int = 0, rows=None) -> dict:
+    """The bound of a launch of one frame's segments (of the row slab
+    ``row_offset``, ``rows`` when given), over the frame's launches: the
+    kernel's counts, the ray-state bytes (a live ray reads 52 and writes 56
+    bytes, a dead one reads its alive flag, segment 0 writes 56 per ray),
+    the 18 parameters of each launch, and once per frame the rows the
+    walks read, with the hit position, normal and albedo (60 B) of each
+    triangle tested (a superset of those hit); with the live rays before
+    each launch."""
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.geometry import (
         WalkCounts,
     )
 
-    n = cfg.width * cfg.height
+    n = cfg.width * (cfg.height if rows is None else rows)
     counts = WalkCounts.zeros(n, td)
     live = []
-    frame_segments(wf, td, cfg, cam, light, frame_idx, counts, live)
+    frame_segments(wf, td, cfg, cam, light, frame_idx, counts, live, row_offset=row_offset,
+                   rows=rows)
     segs = cfg.max_bounces
     state_bytes = 56 * n + sum(108 * k + 4 * n for k in live[1:])
     fields = walk_bound(counts, state_bytes + 72 * segs, per_tri=60)
     fields["bound_ms"] /= segs
+    return dict(fields, live_rays=live)
+
+
+def segment_record_fields(wf, td, cfg, cam, light, frame_idx) -> dict:
+    """ms per launch of one frame's segments, and the bound of a launch
+    (:func:`segment_bound`), with the live rays and lane efficiency."""
+    n = cfg.width * cfg.height
+    fields = segment_bound(wf, td, cfg, cam, light, frame_idx)
+    live = fields.pop("live_rays")
     timing = kernel_ms(lambda: frame_segments(wf, td, cfg, cam, light, frame_idx),
                        "trace_segment_kernel", 3, warmup=1, mean=True)
     ms = timing["ms"]
@@ -1497,14 +1532,8 @@ def visibility_mode(pt, geo_mod, td, cfg, cam, dev, label: str) -> dict:
     check(same_plain and same_full and launches == {name: 1},
           f"visibility-only mode {label}: planes bit-equal to the plain version and the full "
           f"mode, one {name} launch")
-    n = cfg.width * cfg.height
     if bvh:
-        counts = geo_mod.WalkCounts.zeros(n, td)
-        lanes = torch.zeros(4, dtype=torch.int64, device=td.lut.device)
-        geo_mod.visibility_pass(*args, counts=counts, lanes=lanes)
-        committed = torch.unique(k.visibility[k.visibility > 0]).numel()
-        fields = dict(walk_bound(counts, 20 * n + 224 + 36 * committed), committed_tris=committed,
-                      **walk_lane_fields(lanes, counts, n))
+        fields = geometry_bvh_bound(geo_mod, args, td, cfg, vis_only=True)
     else:
         fields = dense_geometry_fields(geo_mod, args, cfg, vis_only=True)
     return dict(mode=f"visibility-only ({label}), {cfg.width}x{cfg.height}", max_abs_err=err,
@@ -2173,6 +2202,323 @@ MICRO_PLAIN_ITERS = (64, 256)  # the plain twins' slope on the card
 MICRO_TWIN_AT_JAX_COUNT = ("scalar", "dynrow", "assemble", "when", "reduce", "dynwin", "cond")
 
 
+# Row-slab modes (the row-sharded frame, parallel/): the middle third of a
+# 1920x1080 frame, the slab of rank 1 of 3, the interior one.
+SLAB = (360, 360)  # (row_offset, rows)
+
+
+def slab_mode(label: str, err: float, kernel: dict, plain_ms: float, **fields) -> dict:
+    """A row-slab mode's entry in its kernel's record."""
+    return dict(mode=f"{label}, rows {SLAB[0]}..{SLAB[0] + SLAB[1]} of 1920x1080 (sharded slab)",
+                max_abs_err=err, plain_ms=plain_ms, **kernel, **fields)
+
+
+def timed_plain(fn):
+    """(result, ms) of one call of the plain version ``fn``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def slab_kernel_phase(pt, dev, records) -> None:
+    """Each kernel's row-slab, halo and window mode (the sharded frame's)
+    against its plain version with the same arguments, bit for bit, at
+    1920x1080 with row_offset 360 and 360 rows: the geometry kernels in
+    both modes (the Cornell box; 32,768 triangles), the trace kernel, the
+    segment kernel (path A, every segment) and the shadow kernel (path C's
+    slab), the a-trous kernels with k-row halos at k = 1, 5, 9, and both
+    blends on a reprojection window and on a gathered plane. Each also
+    equals those rows of its whole-frame result where it has one. Adds each
+    as a mode of its kernel's record."""
+    import torch
+
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import atrous, gbuffer
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import (
+        atrous as at_mod,
+        geometry as geo_mod,
+        pathtrace as pt_mod,
+        wavefront as wf,
+    )
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.parallel.sharding import (
+        REPROJ_HALO_ROWS,
+    )
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline import frame
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import procedural
+
+    t_phase = time.time()
+    by_name = {r["name"]: r for r in records}
+    w, h = BENCH_SIZE
+    r0, rows = SLAB
+    slab = dict(row_offset=r0, rows=rows)
+    cornell = pt.precompute_triangle_data(pt.Scene.cornell_box(), dev)
+    td32 = pt.precompute_triangle_data(pt.Scene.from_arrays(*procedural.subdivided_cornell(32)),
+                                       dev)
+    base = pt.RenderConfig(width=w, height=h)
+    path_a = dataclasses.replace(base, **LARGE["A"][1])
+    cam, light = orbit(pt, 3, dev), pt.Light.default(dev)
+
+    def planes_agree(label, k, p, whole):
+        err = max(same_bits(f"{label} {name}", getattr(k, name).float(), getattr(p, name).float())
+                  for name in k._fields if getattr(k, name) is not None)
+        check(all(torch.equal(getattr(k, n), getattr(whole, n)[r0:r0 + rows])
+                  for n in k._fields if getattr(k, n) is not None),
+              f"{label}: the slab equals those rows of the whole frame")
+        return err
+
+    # -- geometry kernels, full and visibility-only modes; the bounds from
+    # the slab's own counting launches --
+    for name, td, geo_fn, kernel in (
+            ("geometry", cornell, geo_mod.geometry_pass, "geometry_kernel"),
+            ("geometry_bvh", td32, geo_mod.geometry_pass_bvh, "geometry_bvh_kernel")):
+        args = stress_geo_args(pt, td, base, dev)
+        k = geo_fn(*args, emit_albedo=True, **slab)
+        p, plain_ms = timed_plain(lambda: geo_mod.geometry_pass_plain(*args, emit_albedo=True,
+                                                                      **slab))
+        err = planes_agree(f"{name} slab", k, p, geo_fn(*args, emit_albedo=True))
+        if name == "geometry":
+            fields = dense_geometry_fields(geo_mod, args, base, albedo=True, **slab)
+        else:
+            fields = geometry_bvh_bound(geo_mod, args, td, base, **slab)
+        by_name[name]["modes"].append(slab_mode(
+            f"{td.num_triangles} triangles with albedo", err,
+            kernel_ms(lambda: geo_fn(*args, emit_albedo=True, **slab), kernel), plain_ms,
+            **fields))
+        view, proj = frame.camera_matrices(cam, base)
+        vargs = (td, cam.position, view, proj, base, cam.rotation)
+        k = geo_mod.visibility_pass(*vargs, **slab)
+        p, plain_ms = timed_plain(lambda: gbuffer.visibility_pass(
+            *vargs[:5], rotation=cam.rotation, **slab))
+        err = planes_agree(f"{name} visibility-only slab", k, p, geo_mod.visibility_pass(*vargs))
+        if name == "geometry":
+            fields = dense_geometry_fields(geo_mod, vargs, base, vis_only=True, **slab)
+        else:
+            fields = geometry_bvh_bound(geo_mod, vargs, td, base, vis_only=True, **slab)
+        by_name[name]["modes"].append(slab_mode(
+            f"visibility-only, {td.num_triangles} triangles", err,
+            kernel_ms(lambda: geo_mod.visibility_pass(*vargs, **slab), kernel), plain_ms,
+            **fields))
+
+    # -- trace kernel: the default config, frame 5 --
+    k = pt_mod.path_trace_pass(cornell, cam.position, light, 5, base, cam.rotation, **slab)
+    p, plain_ms = timed_plain(lambda: pt_mod.path_trace_pass_plain(
+        cornell, cam.position, light, 5, base, rotation=cam.rotation, **slab))
+    err = same_bits("trace slab", k, p)
+    whole = pt_mod.path_trace_pass(cornell, cam.position, light, 5, base, cam.rotation)
+    check(torch.equal(k, whole[r0:r0 + rows]), "trace slab equals those rows of the whole frame")
+    by_name["trace"]["modes"].append(slab_mode(
+        "default config, frame 5", err,
+        kernel_ms(lambda: pt_mod.path_trace_pass(cornell, cam.position, light, 5, base,
+                                                 cam.rotation, **slab), "trace_kernel", 5),
+        plain_ms, **trace_bound(pt_mod, cornell, cam, light, 5, base, **slab)))
+
+    # -- segment kernel: every segment of path A's slab; shadow kernel:
+    # path C's slab of bounce-0 shadow rays --
+    err, plain_ms = segments_agree(wf, td32, path_a, cam, light, 5, "path A slab", **slab)
+    by_name["trace_segment"]["modes"].append(slab_mode(
+        "path A (32768 triangles), one frame's segments, per launch", err,
+        kernel_ms(lambda: frame_segments(wf, td32, path_a, cam, light, 5, **slab),
+                  "trace_segment_kernel", 3, warmup=1, mean=True), plain_ms,
+        **segment_bound(wf, td32, path_a, cam, light, 5, **slab)))
+    path_c = dataclasses.replace(base, **LARGE["C"][1])
+    rays = path_c_shadow_rays(pt, geo_mod, td32, path_c, cam, light, dev, **slab)
+    k = wf.shadow_segment(*rays, td32, path_c, width=w)
+    p, plain_ms = timed_plain(lambda: wf.shadow_segment_plain(*rays, td32, path_c))
+    err = same_bits("shadow_segment path C slab", k, p)
+    whole = wf.shadow_segment(*path_c_shadow_rays(pt, geo_mod, td32, path_c, cam, light, dev),
+                              td32, path_c, width=w)
+    check(torch.equal(k, whole[r0 * w:(r0 + rows) * w]),
+          "shadow_segment slab equals those rays of the whole frame")
+    fields = shadow_segment_fields(wf, geo_mod, td32, path_c, rays)
+    by_name["shadow_segment"]["modes"].append(slab_mode(
+        "path C's bounce-0 shadow rays", float((k != p).any().item()),
+        {k_: fields.pop(k_) for k_ in ("ms", "call_ms") if k_ in fields}, plain_ms, **fields))
+
+    # -- a-trous kernels: the slab's rows with k exchanged rows a side --
+    rng = np.random.default_rng(SEED + 7)
+    geo = geo_mod.geometry_pass(*stress_geo_args(pt, cornell, base, dev))
+    color = torch.tensor(rng.exponential(0.5, (h, w, 3)).astype(np.float32), device=dev)
+    var = torch.tensor((0.1 * rng.random((h, w))).astype(np.float32), device=dev)
+    cfg_v = dataclasses.replace(base, variance_guided=True)
+    for k_ in ATROUS_KS:
+        window = slice(r0 - k_, r0 + rows + k_)
+        ins = (color[window], geo.normal[window], geo.depth[window])
+        got = at_mod.atrous_iteration(*ins, k_, base, halo=k_)
+        want, plain_ms = timed_plain(lambda: at_mod.atrous_iteration_plain(*ins, k_, base,
+                                                                           halo=k_))
+        err = same_bits(f"atrous_iter halo k={k_}", got, want)
+        whole = at_mod.atrous_iteration(color, geo.normal, geo.depth, k_, base)
+        check(torch.equal(got, whole[r0:r0 + rows]),
+              f"atrous_iter halo k={k_} equals those rows of the whole frame's iteration")
+        by_name["atrous_iter"]["modes"].append(slab_mode(
+            f"halo k={k_}", err, kernel_ms(lambda: at_mod.atrous_iteration(*ins, k_, base,
+                                                                           halo=k_),
+                                           "atrous_iter_kernel"), plain_ms,
+            **bound(40 * rows * w, ATROUS_OPS * rows * w)))
+        ins_v = (color[window], var[window], geo.normal[window], geo.depth[window])
+        got = at_mod.atrous_iteration_var(*ins_v, k_, cfg_v, halo=k_)
+        want, plain_ms = timed_plain(lambda: at_mod.atrous_iteration_var_plain(
+            *ins_v, k_, cfg_v, halo=k_))
+        err = max(same_bits(f"atrous_iter_var halo k={k_} {part}", a, b)
+                  for part, a, b in zip(("color", "var"), got, want))
+        whole = at_mod.atrous_iteration_var(color, var, geo.normal, geo.depth, k_, cfg_v)
+        check(all(torch.equal(a, b[r0:r0 + rows]) for a, b in zip(got, whole)),
+              f"atrous_iter_var halo k={k_} equals those rows of the whole frame's iteration")
+        by_name["atrous_iter_var"]["modes"].append(slab_mode(
+            f"halo k={k_}", err,
+            kernel_ms(lambda: at_mod.atrous_iteration_var(*ins_v, k_, cfg_v, halo=k_),
+                      "atrous_iter_var_kernel"), plain_ms,
+            **bound(48 * rows * w, ATROUS_VAR_OPS * rows * w)))
+
+    # -- blends: the slab's backprojection (orbit one frame), the history
+    # gathered from the reprojection window (row0 = row_offset - halo) or
+    # from the all-gathered frame (row0 = 0) --
+    cur_geo, _ = frame_backprojection(pt, geo_mod, base, dev)
+    py, px = (t[r0:r0 + rows].contiguous() for t in (cur_geo.prev_y, cur_geo.prev_x))
+    prev = torch.tensor(rng.exponential(0.5, (h, w, 3)).astype(np.float32), device=dev)
+    lam = torch.tensor(rng.uniform(0, 1, (rows, w)).astype(np.float32), device=dev)
+    filtered = color[r0:r0 + rows].contiguous()
+    prev_age = torch.tensor(rng.integers(0, 40, (h, w)).astype(np.float32), device=dev)
+    prev_cons = cur_geo.visibility
+    cur_cons = cur_geo.visibility[r0:r0 + rows].contiguous()
+    ramp_cfg = dataclasses.replace(base, accumulation_ramp=True, adaptive_alpha=True)
+    halo = REPROJ_HALO_ROWS
+    sources = {"reprojection window": (slice(r0 - halo, r0 + rows + halo), r0 - halo),
+               "all-gathered frame": (slice(0, h), 0)}
+    for label, (rs, row0) in sources.items():
+        src = tuple(t[rs].contiguous() for t in (prev, prev_age, prev_cons))
+        err = err2 = 0.0
+        for f in (0, 3):  # frame 0 passes through; frame 3 gathers
+            a = at_mod.temporal_blend(filtered, src[0], py, px, f, lam, base, src_row0=row0)
+            b, plain_ms = timed_plain(lambda: at_mod.temporal_blend_plain(
+                filtered, src[0], py, px, f, lam, base, src_row0=row0))
+            err = max(err, same_bits(f"temporal_blend {label} frame {f}", a, b))
+            a2 = at_mod.temporal_blend_ramp(filtered, src[0], py, px, f, lam, src[1], src[2],
+                                            cur_cons, ramp_cfg, src_row0=row0)
+            b2, plain2_ms = timed_plain(lambda: at_mod.temporal_blend_ramp_plain(
+                filtered, src[0], py, px, f, lam, src[1], src[2], cur_cons, ramp_cfg,
+                src_row0=row0))
+            err2 = max([err2] + [same_bits(f"temporal_blend_ramp {label} frame {f} {part}", x, y)
+                                 for part, x, y in zip(("rgb", "age"), a2, b2)])
+        by_name["temporal_blend"]["modes"].append(slab_mode(
+            f"history from the {label}", err,
+            kernel_ms(lambda: at_mod.temporal_blend(filtered, src[0], py, px, 3, lam, base,
+                                                    src_row0=row0), "temporal_blend_kernel"),
+            plain_ms, **bound(48 * rows * w, BLEND_OPS * rows * w)))
+        by_name["temporal_blend_ramp"]["modes"].append(slab_mode(
+            f"history from the {label}", err2,
+            kernel_ms(lambda: at_mod.temporal_blend_ramp(
+                filtered, src[0], py, px, 3, lam, src[1], src[2], cur_cons, ramp_cfg,
+                src_row0=row0), "temporal_blend_ramp_kernel"),
+            plain2_ms, **bound(64 * rows * w, RAMP_BLEND_OPS * rows * w)))
+    print(f"row-slab kernel phase: {time.time() - t_phase:.1f} s", flush=True)
+
+
+# The sharded phase: 3 gloo ranks sharing cuda:0 at 1920x1080 (360 rows a
+# rank, rank 1 interior), 4 frames a path: orbit angles 0, 0.02, 0.04, then
+# a cut to 1.5. (scene: splits of subdivided_cornell or None for the Cornell
+# box; config overrides.)
+SHARD_RANKS = 3
+SHARD_ANGLES = (0.0, 0.02, 0.04, 1.5)
+SHARDED_PATHS = {
+    "default_1080p": (None, {}),
+    "asvgf_1080p": (None, PATHGRAD),
+    "stress32c": (32, LARGE["C"][1]),
+    "recommended32": (32, RECOMMENDED),
+}
+# The JAX package's CommLedger for these configs over 3 devices at
+# 1920x1080 (halo, reprojection halo, all-gather fallback bytes), from
+# jax.eval_shape of its make_sharded_frame on a CPU mesh, as its
+# tests/test_sharding.py reads it.
+JAX_LEDGER_3 = {
+    "default_1080p": (5022720, 184320, 16588800),
+    "asvgf_1080p": (6062080, 491520, 44236800),
+    "recommended32": (6017280, 430080, 38707200),
+}
+
+
+def sharded_phase(pt, dev, card: str) -> dict:
+    """The row-sharded frame (parallel/frame_sharded.py) as a user runs it:
+    sharding.spawn of SHARD_RANKS gloo ranks on the one card, each through
+    make_sharded_frame on the kernels' row-slab modes, over the four
+    SHARDED_PATHS. Rank 0 gathers every frame and history plane and holds
+    it to the single-device kernel route's, bit for bit; each rank's
+    launches a frame must equal the single-device route's. Prints per rank
+    the launches, ms and device ms a frame and the exchange's ms, and the
+    byte ledger against the JAX package's. Returns the launch counts of the
+    sharded paths (summed over ranks)."""
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.parallel import (
+        frame_sharded,
+        sharding,
+    )
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene import procedural
+
+    t_phase = time.time()
+    w, h = BENCH_SIZE
+    poses = [(pt.Camera.orbit([0.0, 1.0, 0.0], 6.0, a, 1.0), pt.Light.default())
+             for a in SHARD_ANGLES]
+    jobs, names = [], []
+    for name, (splits, over) in SHARDED_PATHS.items():
+        scene = pt.Scene.cornell_box() if splits is None else pt.Scene.from_arrays(
+            *procedural.subdivided_cornell(splits))
+        cfg = pt.RenderConfig(width=w, height=h, **over)
+        jobs.append((scene, cfg, poses, 3, True, False))
+        names.append(name)
+    results = sharding.spawn(frame_sharded.render_jobs, SHARD_RANKS, jobs, backend="gloo",
+                             device="cuda", timeout=120.0)
+    paths = {}
+    for i, name in enumerate(names):
+        outs = [r[i] for r in results]
+        ref = outs[0]
+        for f, (eq, err) in enumerate(zip(ref["equal"], ref["max_abs"])):
+            print(f"sharded {name} frame {f}: gathered planes bit-equal to the single-device "
+                  f"kernel route {eq}, max_abs {err:.3e}", flush=True)
+        check(all(all(eq.values()) for eq in ref["equal"]),
+              f"sharded {name}: every gathered frame and history plane over {SHARD_RANKS} ranks "
+              "bit-equal to the single-device kernel route")
+        for o in outs:
+            check(o["launches"] == ref["single_launches"],
+                  f"sharded {name} rank {o['rank']}: the single-device route's kernels a frame "
+                  f"{ref['single_launches'][-1]}")
+            dev_ms = o.get("device", {})
+            print(f"sharded {name} rank {o['rank']}/{SHARD_RANKS} {w}x{h}: launches a frame "
+                  f"{o['launches'][-1]}; ms a frame {[round(x, 3) for x in o['ms']]} "
+                  f"(single device {[round(x, 3) for x in ref['single_ms']]}); device ms a "
+                  f"frame {dev_ms.get('device_ms', 'not measured')}, launches "
+                  f"{dev_ms.get('launches', 'not measured')}, profiler windows "
+                  f"{dev_ms.get('profiler_windows', 'not measured')}; exchange ms "
+                  f"{[round(x, 3) for x in o['comm_ms']]} ({card})", flush=True)
+        ledger = ref["ledger"]
+        comm = [c["gather_bytes"] for c in ref["comm"]]
+        print(f"sharded {name} ledger: {ledger}; gather bytes a frame {comm}; fallback over "
+              f"window {ledger['gather_fallback_bytes'] / ledger['reproj_halo_bytes']:.1f}",
+              flush=True)
+        check(all(o["ledger"] == ledger for o in outs), f"sharded {name}: every rank's ledger")
+        check(comm[1:3] == [0, 0] and comm[3] == ledger["gather_fallback_bytes"],
+              f"sharded {name}: no all-gather on the orbit, the fallback on the cut")
+        if name in JAX_LEDGER_3:
+            want = dict(zip(("halo_bytes", "reproj_halo_bytes", "gather_fallback_bytes"),
+                            JAX_LEDGER_3[name]))
+            check(ledger == want, f"sharded {name}: ledger {want}, the JAX package's")
+        total = {}
+        for o in outs:
+            for counts in o["launches"]:
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+        paths[f"sharded_{name}"] = total
+        print(json.dumps({"sharded_path": name, "ranks": SHARD_RANKS, "size": [w, h],
+                          "card": card, "ms": [o["ms"] for o in outs],
+                          "comm_ms": [o["comm_ms"] for o in outs],
+                          "device": [o.get("device") for o in outs],
+                          "single_ms": ref["single_ms"], "ledger": ledger,
+                          "gather_bytes": comm}), flush=True)
+    print(f"sharded phase: {time.time() - t_phase:.1f} s", flush=True)
+    return paths
+
+
 def micro_agrees(micro, name: str, x, got: dict, iters: int, what: str) -> None:
     """Check a micro-kernel's result ``got`` at ``iters`` iterations: the
     output equals ``x``, and the output and every carry are bit-equal to
@@ -2256,15 +2602,18 @@ def micro_phase(dev) -> tuple:
     return records, counts
 
 
-def suite_phase(dev) -> dict:
+def suite_phase(dev, when: str = "") -> dict:
     """The measurement entry points: bench_torch.run_bench at 1920x1080 for
     a few frames, and the port's benchmark suite in --quick mode with
-    device time; prints their JSON lines. Returns the launch counts of
-    each, by path."""
+    device time; prints their JSON lines, each row with the profiler
+    windows it took. Returns the launch counts of each, by path (``when``
+    added to the path names). Run before and after the sharded phase, to
+    see whether the sharded ranks' profiling leaves an empty window."""
     import torch
 
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.benchmarks import suite
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import LAUNCHES
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils import profiling
     from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.device import (
         device_name,
     )
@@ -2275,13 +2624,14 @@ def suite_phase(dev) -> dict:
     w, h = BENCH_SIZE
     LAUNCHES.clear()
     ms, name = bench_torch.run_bench(w, h, frames=5, warmup=3, device=dev)
-    paths = {"bench_torch": dict(LAUNCHES)}
+    paths = {f"bench_torch{when}": dict(LAUNCHES)}
     line = bench_torch.result_line(w, h, ms, name)
     print(json.dumps(line), flush=True)
     check(line["value"] > 0 and np.isfinite(line["value"]), "bench_torch: finite ms/frame")
     LAUNCHES.clear()
+    empty = profiling.empty_windows
     rows = suite.run_suite(quick=True, device=dev, device_time=True)
-    paths["suite --quick"] = dict(LAUNCHES)
+    paths[f"suite --quick{when}"] = dict(LAUNCHES)
     card = device_name(dev)
     for row, result in rows:
         print(json.dumps(suite.row_line(row, result, card)), flush=True)
@@ -2290,7 +2640,8 @@ def suite_phase(dev) -> dict:
         np.isfinite(r["ms"]) and r["device_ms"] > 0 and r["launches"] > 0 for _, r in rows),
         f"suite --quick --device-time: {len(want)} rows, finite ms, device ms and launches")
     torch.cuda.synchronize()
-    print(f"suite phase: {time.time() - t_phase:.1f} s; launches {paths}", flush=True)
+    print(f"suite phase{when}: {time.time() - t_phase:.1f} s; profiler windows retaken "
+          f"{profiling.empty_windows - empty}; launches {paths}", flush=True)
     return paths
 
 
@@ -2336,6 +2687,7 @@ def main() -> int:
         dense_geometry_phase(pt, dev)
         large_kernel_phase(pt, dev, records)
         gradient_kernel_phase(pt, dev, records)
+        slab_kernel_phase(pt, dev, records)
         model_kernel_phase(pt, dev, records)
         refit_cost_phase(pt, dev)
         paths = {"default": sequence_phase(pt, dev)}
@@ -2343,6 +2695,8 @@ def main() -> int:
             paths[name] = preset_sequence_phase(pt, dev, name)
         for path in PATHS:
             paths[path] = large_sequence_phase(pt, dev, path)
+        paths.update(suite_phase(dev, " (before the sharded phase)"))
+        paths.update(sharded_phase(pt, dev, card))
         paths.update(app_phase(pt, dev, card))
         micro_records, paths["mosaic_micro"] = micro_phase(dev)
         records += micro_records
@@ -2370,6 +2724,10 @@ def main() -> int:
     order += ["tri_tests", "tests_per_pixel", "survivors_per_pixel", "bound_ms_untiled", "cull_ops",
               "box_tests", "node_rows_read", "tri_rows_read", "committed_tris", "live_rays",
               "lane_eff", "steps_per_ray"]
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils import profiling
+
+    print(f"profiler windows that held no kernel and were taken again: "
+          f"{profiling.empty_windows}", flush=True)
     print(json.dumps({"modelled_not_measured_lane_eff_of_earlier_designs": MODELLED}))
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in records]}))
     print(card)

@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
 import itertools
 import json
 import os
@@ -55,9 +54,11 @@ import time
 
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.device import card_line
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling import (
+    annotated,
     device_time,
     kernel_events,
     kernel_name,
+    range_kernels,
     read_events,
 )
 
@@ -98,41 +99,11 @@ def _renderer(pt, name: str):
     return getattr(presets, f"cornell_box_{name}")()
 
 
-def _range_kernels(events, label: str):
-    """The kernels launched from the host inside the profiler ranges named
-    ``label``: the launch call (matched to its kernel by correlation id)
-    starts inside the range."""
-    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
-             if e.get("cat") == "user_annotation" and e.get("name") == label]
-    launched = {e["args"]["correlation"] for e in events
-                if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})
-                and any(a <= e["ts"] <= b for a, b in spans)}
-    return [e for e in kernel_events(events) if e.get("args", {}).get("correlation") in launched]
-
-
-@contextlib.contextmanager
 def _annotated_ranges():
-    """Wrap the RANGES functions in profiler ranges of their names."""
-    import torch
-
+    """The RANGES functions inside profiler ranges of their names."""
     from real_time_path_tracing_with_spatiotemporal_filtering_torch import ops
 
-    saved = []
-    for mod_name, fn_name in RANGES:
-        mod = getattr(ops, mod_name)
-        fn = getattr(mod, fn_name)
-        saved.append((mod, fn_name, fn))
-
-        def wrapper(*args, _fn=fn, _label=fn_name, **kwargs):
-            with torch.profiler.record_function(_label):
-                return _fn(*args, **kwargs)
-
-        setattr(mod, fn_name, wrapper)
-    try:
-        yield
-    finally:
-        for mod, fn_name, fn in saved:
-            setattr(mod, fn_name, fn)
+    return annotated([(getattr(ops, mod), name, name) for mod, name in RANGES])
 
 
 def _stepper(r, name: str):
@@ -183,7 +154,7 @@ def profile(pt, name: str, out: str) -> dict:
     busy_ms = busy["device_ms"]
     ranges = {}
     for _, label in RANGES:
-        inside = _range_kernels(events, label)
+        inside = range_kernels(events, label)
         if inside:
             ranges[label] = dict(_per_kernel(inside),
                                  ms=sum(e["dur"] for e in inside) / 1e3 / FRAMES,

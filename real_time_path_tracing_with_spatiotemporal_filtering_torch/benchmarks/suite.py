@@ -41,7 +41,8 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils import pro
 def bench_renderer(make_renderer, frames, mutate=None, device_time=False) -> dict:
     """ms/frame of ``frames`` frames after two warm-up frames; with
     ``device_time``, the device's busy ms, launches and idle share per frame
-    over ``frames`` more, profiled."""
+    over ``frames`` more, profiled, and the profiler windows that took
+    (more than 1: a window held no kernel and was taken again)."""
     r = make_renderer()
     profiling.sync(r.step())  # warm
     profiling.sync(r.step())
@@ -65,11 +66,13 @@ def bench_renderer(make_renderer, frames, mutate=None, device_time=False) -> dic
             run(frames)
             wall.append(time.perf_counter() - t0)
 
+        empty = profiling.empty_windows
         kernels = profiling.profiled_kernels(profiled, 1)
-        profiled_ms = wall[0] / frames * 1000.0
+        profiled_ms = wall[-1] / frames * 1000.0  # the window the kernels are from
         busy = profiling.device_time(kernels, frames)
         result.update(device_ms=busy["device_ms"], launches=busy["launches"],
-                      idle_share=1.0 - busy["device_ms"] / profiled_ms)
+                      idle_share=1.0 - busy["device_ms"] / profiled_ms,
+                      profiler_windows=1 + profiling.empty_windows - empty)
     return result
 
 
@@ -237,6 +240,8 @@ def row_line(name: str, result: dict, device_name: str) -> dict:
     for key in ("device_ms", "launches", "idle_share"):
         if key in result:
             line[key] = round(result[key], 4)
+    if "profiler_windows" in result:
+        line["profiler_windows"] = result["profiler_windows"]
     return line
 
 

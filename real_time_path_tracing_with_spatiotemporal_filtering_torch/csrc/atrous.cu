@@ -69,6 +69,19 @@
 // ramp mode ~70) and is bound by memory bandwidth; its gather is coalesced
 // while the camera moves slowly. powf/expf are the precise library
 // functions (no fast math): __powf would drift on w_n = x^128.
+//
+// The row-sharded frame (parallel/) adds two modes. The a-trous kernels'
+// halo mode (the TPU package's halo=, a slab's a-trous step): the inputs
+// carry ``halo`` >= k exchanged neighbour rows above and below the ``height``
+// output rows, and the taps read them with no vertical clamp (the x clamp
+// stays); the lattice blocks are those of the output rows, and a pixel of
+// the lower halo computes the forward weights a tile pixel above it reads.
+// The blends' source mode: the history planes they gather from hold
+// ``src_height`` rows of the frame from global row ``src_row0`` on (the
+// halo-padded reprojection window, or the all-gathered frame), and a pixel
+// gathers row clamp(prev_y - src_row0, 0, src_height - 1), as
+// parallel/sharding.reproject_rows_sharded does. halo 0, src_height =
+// height and src_row0 0 are the whole-frame kernels.
 
 #include <cuda_runtime.h>
 
@@ -188,6 +201,9 @@ struct Lattice {
 // otherwise (there the clamped tap is not p - d's forward tap). VAR
 // multiplies the prefix by w_l, computed with p's own stddev, and
 // propagates the variance.
+// The inputs are read at rows [-halo, height + halo) (row 0 the first
+// output row; halo > 0 only with halo >= k), the output written at rows
+// [0, height).
 template <bool VAR>
 __device__ __forceinline__ void atrous_block(const float* __restrict__ color,
                                              const float* __restrict__ var,
@@ -195,20 +211,24 @@ __device__ __forceinline__ void atrous_block(const float* __restrict__ color,
                                              const float* __restrict__ depth,
                                              float* __restrict__ out, float* __restrict__ var_out,
                                              float sigma_n, float sigma_z, float sigma_l,
-                                             float var_eps, int width, int height, int k,
-                                             int chunks) {
+                                             float var_eps, int width, int height, int halo,
+                                             int k, int chunks) {
   extern __shared__ float s_w[];  // four planes of R x (m + kTX) forward weights
   const Lattice L(k, chunks);
   if (L.y0 >= height) return;  // an empty chunk past the last row: the whole block
   const int u = threadIdx.x, t = threadIdx.y, x = L.x0 + u, y = L.y0 + t * k;
   const int plane = Lattice::R * L.ww;
+  const int y_lo = -halo, y_hi = height - 1 + halo;  // the input rows
   const bool in = x < width && y < height;
+  // a pixel whose forward weights the block reads: an output pixel, or one
+  // of the lower halo's rows
+  const bool weighs = x < width && y <= y_hi;
   auto clamped = [&](int gx, int gy) {
-    return clampi(gy, height - 1) * width + clampi(gx, width - 1);
+    return min(max(gy, y_lo), y_hi) * width + clampi(gx, width - 1);
   };
   Px p;
   float fw[4];
-  if (in) {
+  if (weighs) {
     p = load_px(color, normal, depth, y * width + x);
 #pragma unroll
     for (int d = 0; d < 4; ++d) {
@@ -222,7 +242,7 @@ __device__ __forceinline__ void atrous_block(const float* __restrict__ color,
     int d, r, wc;
     L.halo_item(h, &d, &r, &wc);
     const int gx = L.col_x(wc), gy = L.row_y(r);
-    if (gx < 0 || gx >= width || gy < 0 || gy >= height) continue;  // never read
+    if (gx < 0 || gx >= width || gy < y_lo || gy > y_hi) continue;  // never read
     const Px a = load_px(color, normal, depth, gy * width + gx);
     const Px b = load_px(color, normal, depth,
                          clamped(gx + offset_dx(d) * k, gy + offset_dy(d) * k));
@@ -253,7 +273,7 @@ __device__ __forceinline__ void atrous_block(const float* __restrict__ color,
         hw = edge_weight<VAR>(p, p, sigma_n, sigma_z, sigma_l);
       } else if (i > 0 || (i == 0 && j > 0)) {
         hw = fw[offset_index(i, j)];
-      } else if (x + i * k >= 0 && y + j * k >= 0 && y + j * k < height) {
+      } else if (x + i * k >= 0 && y + j * k >= y_lo && y + j * k <= y_hi) {
         hw = s_w[offset_index(i, j) * plane + (t + 1 + j) * L.ww + (i + 1) * L.m + u];
       } else {
         hw = edge_weight<VAR>(p, load_px(color, normal, depth, q), sigma_n, sigma_z, sigma_l);
@@ -277,9 +297,10 @@ __device__ __forceinline__ void atrous_block(const float* __restrict__ color,
 __global__ void __launch_bounds__(kTX * kTY, kMinBlocks)
     atrous_iter_kernel(const float* __restrict__ color, const float* __restrict__ normal,
                        const float* __restrict__ depth, float* __restrict__ out, float sigma_n,
-                       float sigma_z, float sigma_l, int width, int height, int k, int chunks) {
+                       float sigma_z, float sigma_l, int width, int height, int halo, int k,
+                       int chunks) {
   atrous_block<false>(color, nullptr, normal, depth, out, nullptr, sigma_n, sigma_z, sigma_l,
-                      0.0f, width, height, k, chunks);
+                      0.0f, width, height, halo, k, chunks);
 }
 
 __global__ void __launch_bounds__(kTX * kTY, kMinBlocks)
@@ -287,17 +308,18 @@ __global__ void __launch_bounds__(kTX * kTY, kMinBlocks)
                            const float* __restrict__ normal, const float* __restrict__ depth,
                            float* __restrict__ out, float* __restrict__ var_out, float sigma_n,
                            float sigma_z, float sigma_l, float var_eps, int width, int height,
-                           int k, int chunks) {
+                           int halo, int k, int chunks) {
   atrous_block<true>(color, var, normal, depth, out, var_out, sigma_n, sigma_z, sigma_l, var_eps,
-                     width, height, k, chunks);
+                     width, height, halo, k, chunks);
 }
 
 __global__ void temporal_blend_kernel(const float* __restrict__ filtered,
                                       const float* __restrict__ prev_image,
                                       const int* __restrict__ prev_y,
                                       const int* __restrict__ prev_x, const float* __restrict__ lam,
-                                      float* __restrict__ out, int width, int height, float alpha,
-                                      int adaptive, int frame) {
+                                      float* __restrict__ out, int width, int height,
+                                      int src_height, int src_row0, float alpha, int adaptive,
+                                      int frame) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
   int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= width || y >= height) return;
@@ -306,8 +328,9 @@ __global__ void temporal_blend_kernel(const float* __restrict__ filtered,
     for (int c = 0; c < 3; ++c) out[3 * p + c] = filtered[3 * p + c];
     return;
   }
-  // clamped so that no index can read outside the history image
-  int q = min(max(prev_y[p], 0), height - 1) * width + min(max(prev_x[p], 0), width - 1);
+  // clamped so that no index can read outside the history's source plane
+  int q = min(max(prev_y[p] - src_row0, 0), src_height - 1) * width +
+          min(max(prev_x[p], 0), width - 1);
   float a = alpha;
   if (adaptive) a = (1.0f - lam[p]) * alpha + lam[p];
   float keep = 1.0f - a;
@@ -319,8 +342,8 @@ __global__ void temporal_blend_ramp_kernel(
     const int* __restrict__ prev_y, const int* __restrict__ prev_x, const float* __restrict__ lam,
     const float* __restrict__ prev_age, const float* __restrict__ prev_cons,
     const float* __restrict__ cur_cons, float* __restrict__ out, float* __restrict__ age_out,
-    int width, int height, float alpha_min, float reset_lam, float age_cap, int adaptive,
-    int frame) {
+    int width, int height, int src_height, int src_row0, float alpha_min, float reset_lam,
+    float age_cap, int adaptive, int frame) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
   int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= width || y >= height) return;
@@ -330,7 +353,8 @@ __global__ void temporal_blend_ramp_kernel(
     age_out[p] = 1.0f;
     return;
   }
-  int q = min(max(prev_y[p], 0), height - 1) * width + min(max(prev_x[p], 0), width - 1);
+  int q = min(max(prev_y[p] - src_row0, 0), src_height - 1) * width +
+          min(max(prev_x[p], 0), width - 1);
   float l = lam[p];
   float n = fminf(prev_age[q] + 1.0f, age_cap);
   if (l > reset_lam || prev_cons[q] != cur_cons[p]) n = 1.0f;
@@ -350,54 +374,63 @@ dim3 grid_for(int width, int height, dim3 block) {
 // past the last row are left out. Shared memory: four planes of (kTY + 2) x
 // (min(k, kTX) + kTX) weights, at most 20 KB at any k.
 template <class Kernel, class... Args>
-int launch_lattice(Kernel kernel, int width, int height, int k, cudaStream_t stream,
+int launch_lattice(Kernel kernel, int width, int height, int halo, int k, cudaStream_t stream,
                    Args... args) {
-  if (k < 1) return (int)cudaErrorInvalidValue;
+  if (k < 1 || halo < 0 || (halo > 0 && halo < k)) return (int)cudaErrorInvalidValue;
   const int rows = (height + k - 1) / k;  // lattice rows of residue 0, the most
   const int chunks = (rows + kTY - 1) / kTY;
   const dim3 grid((width + kTX - 1) / kTX, min(k, height) * chunks), block(kTX, kTY);
   const size_t bytes = sizeof(float) * 4 * Lattice::R * (min(k, kTX) + kTX);
-  kernel<<<grid, block, bytes, stream>>>(args..., width, height, k, chunks);
+  kernel<<<grid, block, bytes, stream>>>(args..., width, height, halo, k, chunks);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// color, normal, depth: height + 2 halo rows (the first ``halo`` above the
+// output's first row); out: height rows.
 extern "C" int ptsf_atrous_iter(const float* color, const float* normal, const float* depth,
-                                float* out, int width, int height, int k, float sigma_n,
+                                float* out, int width, int height, int halo, int k, float sigma_n,
                                 float sigma_z, float sigma_l, cudaStream_t stream) {
-  return launch_lattice(atrous_iter_kernel, width, height, k, stream, color, normal, depth, out,
-                        sigma_n, sigma_z, sigma_l);
+  const long long skip = (long long)halo * width;
+  return launch_lattice(atrous_iter_kernel, width, height, halo, k, stream, color + 3 * skip,
+                        normal + 3 * skip, depth + skip, out, sigma_n, sigma_z, sigma_l);
 }
 
 extern "C" int ptsf_temporal_blend(const float* filtered, const float* prev_image,
                                    const int* prev_y, const int* prev_x, const float* lam,
-                                   float* out, int width, int height, float alpha, int adaptive,
-                                   int frame, cudaStream_t stream) {
+                                   float* out, int width, int height, int src_height,
+                                   int src_row0, float alpha, int adaptive, int frame,
+                                   cudaStream_t stream) {
+  if (src_height < 1) return (int)cudaErrorInvalidValue;
   dim3 block(32, 8);
   temporal_blend_kernel<<<grid_for(width, height, block), block, 0, stream>>>(
-      filtered, prev_image, prev_y, prev_x, lam, out, width, height, alpha, adaptive, frame);
+      filtered, prev_image, prev_y, prev_x, lam, out, width, height, src_height, src_row0, alpha,
+      adaptive, frame);
   return (int)cudaGetLastError();
 }
 
 extern "C" int ptsf_atrous_iter_var(const float* color, const float* var, const float* normal,
                                     const float* depth, float* out, float* var_out, int width,
-                                    int height, int k, float sigma_n, float sigma_z,
+                                    int height, int halo, int k, float sigma_n, float sigma_z,
                                     float sigma_l, float var_eps, cudaStream_t stream) {
-  return launch_lattice(atrous_iter_var_kernel, width, height, k, stream, color, var, normal,
-                        depth, out, var_out, sigma_n, sigma_z, sigma_l, var_eps);
+  const long long skip = (long long)halo * width;
+  return launch_lattice(atrous_iter_var_kernel, width, height, halo, k, stream, color + 3 * skip,
+                        var + skip, normal + 3 * skip, depth + skip, out, var_out, sigma_n,
+                        sigma_z, sigma_l, var_eps);
 }
 
 extern "C" int ptsf_temporal_blend_ramp(const float* filtered, const float* prev_image,
                                         const int* prev_y, const int* prev_x, const float* lam,
                                         const float* prev_age, const float* prev_cons,
                                         const float* cur_cons, float* out, float* age_out,
-                                        int width, int height, float alpha_min,
-                                        float reset_lam, float age_cap, int adaptive, int frame,
-                                        cudaStream_t stream) {
+                                        int width, int height, int src_height, int src_row0,
+                                        float alpha_min, float reset_lam, float age_cap,
+                                        int adaptive, int frame, cudaStream_t stream) {
+  if (src_height < 1) return (int)cudaErrorInvalidValue;
   dim3 block(32, 8);
   temporal_blend_ramp_kernel<<<grid_for(width, height, block), block, 0, stream>>>(
       filtered, prev_image, prev_y, prev_x, lam, prev_age, prev_cons, cur_cons, out, age_out,
-      width, height, alpha_min, reset_lam, age_cap, adaptive, frame);
+      width, height, src_height, src_row0, alpha_min, reset_lam, age_cap, adaptive, frame);
   return (int)cudaGetLastError();
 }

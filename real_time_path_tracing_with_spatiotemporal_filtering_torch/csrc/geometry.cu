@@ -71,6 +71,13 @@
 // (5 planes, 20 bytes a pixel) and skipping the gradient, the
 // backprojection, the normal and the albedo. Its planes are those of the
 // full mode bit for bit.
+//
+// Both kernels render a row slab when asked (row_offset, rows: the
+// row-sharded frame of parallel/, the TPU kernels' row_offset): the grid
+// covers ``rows`` rows and writes planes of rows x width, while every
+// pixel's ray, its warp tile's frustum and its backprojection use the
+// global row row_offset + y of a frame ``height`` rows high. The defaults
+// (0, height) are the whole frame.
 
 #include "bvh.cuh"
 
@@ -143,11 +150,12 @@ struct TriVerts {
 // backprojection, albedo.
 // prm: cam[0:3] rot[3:12] M[12:28] Mprev[28:44] light[44:47]
 //      light_prev[47:50] color[50:53] color_prev[53:56]
+// ``pix`` is the pixel's index in the output planes, (x, y) its global
+// pixel in the frame.
 template <bool kVisOnly>
-__device__ __forceinline__ void geometry_epilogue(int x, int y, int width, int height,
+__device__ __forceinline__ void geometry_epilogue(int pix, int x, int y, int width, int height,
                                                   const float* prm, const Hit& h, V3 world,
                                                   const TriVerts& tv, const GeoOut& o) {
-  int pix = y * width + x;
   const float* M = prm + 12;
   float vis = 0.0f, depth = 1.0f;
   if (h.hit) {
@@ -212,21 +220,23 @@ constexpr int kWarpW = 8, kWarpH = 4, kBlockWarpsX = 2, kBlockWarpsY = 4;
 constexpr int kTileBlock = 32 * kBlockWarpsX * kBlockWarpsY, kBvhMinBlocks = 6;
 constexpr int kBlockW = kWarpW * kBlockWarpsX, kBlockH = kWarpH * kBlockWarpsY;
 
-// A lane's pixel: its warp's tile at (x0, y0) and its own (x, y), which may
-// lie outside the image on the right and bottom edges.
+// A lane's pixel: its warp's tile at (x0, y0) and its own (x, y), rows of
+// the slab (global row row_offset + y), which may lie outside the slab on
+// the right and bottom edges; ``pix`` its index in the output planes.
 struct TilePixel {
-  int x0, y0, x, y;
+  int x0, y0, x, y, pix;
   bool in_image;
 };
 
-__device__ __forceinline__ TilePixel tile_pixel(int width, int height) {
+__device__ __forceinline__ TilePixel tile_pixel(int width, int rows) {
   const int warp = threadIdx.x / 32, lane = (int)lane_id();
   TilePixel p;
   p.x0 = blockIdx.x * kBlockW + warp % kBlockWarpsX * kWarpW;
   p.y0 = blockIdx.y * kBlockH + warp / kBlockWarpsX * kWarpH;
   p.x = p.x0 + lane % kWarpW;
   p.y = p.y0 + lane / kWarpW;
-  p.in_image = p.x < width && p.y < height;
+  p.pix = p.y * width + p.x;
+  p.in_image = p.x < width && p.y < rows;
   return p;
 }
 
@@ -364,26 +374,28 @@ __device__ __forceinline__ Hit tile_nearest_hit(const float* tab, int num_tris, 
 }
 
 // The dense kernel: a shared-memory table, culled per warp tile. Under
-// kCount, ``counts`` (2, H*W) receives each pixel's triangle tests, then
+// kCount, ``counts`` (2, rows*W) receives each pixel's triangle tests, then
 // the survivors of its warp's cull (the same number in this design).
 template <bool kCount, bool kVisOnly>
 __global__ void __launch_bounds__(kTileBlock)
     geometry_kernel(const float* __restrict__ table, int num_tris,
-                    const float* __restrict__ params, int width, int height, float slope,
-                    float t_max, float eps, GeoOut o, int* __restrict__ counts) {
+                    const float* __restrict__ params, int width, int height, int row_offset,
+                    int rows, float slope, float t_max, float eps, GeoOut o,
+                    int* __restrict__ counts) {
   extern __shared__ float smem[];
   __shared__ float prm[56];
   stage_params(prm, params);
   stage_table(smem, table, num_tris * kStride);
 
-  const TilePixel tp = tile_pixel(width, height);
-  if (tp.x0 >= width || tp.y0 >= height) return;  // the whole warp: no pixel in the image
+  const TilePixel tp = tile_pixel(width, rows);
+  if (tp.x0 >= width || tp.y0 >= rows) return;  // the whole warp: no pixel in the slab
+  const int gy = row_offset + tp.y;  // the lane's global row
   const float pix = 2.0f * slope / (float)height;
   const V3 cam = load3(prm);
-  const Frustum f = tile_frustum(tp.x0, tp.y0, width, height, slope, prm + 3);
+  const Frustum f = tile_frustum(tp.x0, row_offset + tp.y0, width, height, slope, prm + 3);
   // a lane outside the image traces too (its ray is discarded), so that
   // every lane joins the ballots
-  const V3 d = pixel_ray(tp.x, tp.y, 0.0f, 0.0f, width, height, slope, prm + 3);
+  const V3 d = pixel_ray(tp.x, gy, 0.0f, 0.0f, width, height, slope, prm + 3);
   int tests = 0, survivors = 0;
   const Hit h = tile_nearest_hit<kCount>(smem, num_tris, f, pix, cam, d, t_max, eps, tests,
                                          survivors);
@@ -398,16 +410,15 @@ __global__ void __launch_bounds__(kTileBlock)
             load3(row + 33), load3(row + 36), load3(row + 39)};
     }
   }
-  geometry_epilogue<kVisOnly>(tp.x, tp.y, width, height, prm, h, world, tv, o);
+  geometry_epilogue<kVisOnly>(tp.pix, tp.x, gy, width, height, prm, h, world, tv, o);
   if (kCount) {
-    const int pix_id = tp.y * width + tp.x;
-    counts[pix_id] = tests;
-    counts[width * height + pix_id] = survivors;
+    counts[tp.pix] = tests;
+    counts[width * rows + tp.pix] = survivors;
   }
 }
 
-using DenseFn = void (*)(const float*, int, const float*, int, int, float, float, float, GeoOut,
-                         int*);
+using DenseFn = void (*)(const float*, int, const float*, int, int, int, int, float, float, float,
+                         GeoOut, int*);
 
 template <bool kVisOnly>
 DenseFn pick_dense(bool count) {
@@ -416,7 +427,7 @@ DenseFn pick_dense(bool count) {
 
 // The LBVH kernel (large scenes): the walk commits (t, u, v, prim) only;
 // the committed triangle's position, normal and vertices are read once
-// from global memory after it. Under kCount, ``counts`` (2, H*W) receives
+// from global memory after it. Under kCount, ``counts`` (2, rows*W) receives
 // each pixel's triangle and box tests, and seen_node / seen_tri a 1 for
 // every node row and triangle-test row a walk read; ``lanes`` (4,), when
 // not null, the lane counts (flush_lanes): lanes with a pixel and warps,
@@ -425,15 +436,16 @@ template <bool kCount, bool kVisOnly>
 __global__ void __launch_bounds__(kTileBlock, kBvhMinBlocks)
     geometry_bvh_kernel(BvhScene sc, const float* __restrict__ lut_normals,
                         const float* __restrict__ lut, const float* __restrict__ lut_prev,
-                        const float* __restrict__ params, int width, int height, float slope,
-                        float t_max, float eps, GeoOut o, int* __restrict__ counts,
-                        int* seen_node, int* seen_tri, unsigned long long* __restrict__ lanes) {
+                        const float* __restrict__ params, int width, int height, int row_offset,
+                        int rows, float slope, float t_max, float eps, GeoOut o,
+                        int* __restrict__ counts, int* seen_node, int* seen_tri,
+                        unsigned long long* __restrict__ lanes) {
   __shared__ float prm[56];
   stage_params(prm, params);
   __syncthreads();
 
-  const TilePixel tp = tile_pixel(width, height);
-  const int x = tp.x, y = tp.y;
+  const TilePixel tp = tile_pixel(width, rows);
+  const int x = tp.x, y = row_offset + tp.y;  // the global pixel
   const bool in_image = tp.in_image;
   Counts c = {0, 0, seen_node, seen_tri};
   unsigned pixel_lanes = 0, warps = 0;
@@ -457,16 +469,16 @@ __global__ void __launch_bounds__(kTileBlock, kBvhMinBlocks)
             load3(prev), load3(prev + 3), load3(prev + 6)};
     }
   }
-  geometry_epilogue<kVisOnly>(x, y, width, height, prm, h, world, tv, o);
+  geometry_epilogue<kVisOnly>(tp.pix, x, y, width, height, prm, h, world, tv, o);
   if (kCount) {
-    int pix = y * width + x;
-    counts[pix] = c.tri;
-    counts[width * height + pix] = c.box;
+    counts[tp.pix] = c.tri;
+    counts[width * rows + tp.pix] = c.box;
   }
 }
 
 using BvhFn = void (*)(BvhScene, const float*, const float*, const float*, const float*, int,
-                       int, float, float, float, GeoOut, int*, int*, int*, unsigned long long*);
+                       int, int, int, float, float, float, GeoOut, int*, int*, int*,
+                       unsigned long long*);
 
 template <bool kVisOnly>
 BvhFn pick_bvh(bool count) {
@@ -477,39 +489,42 @@ BvhFn pick_bvh(bool count) {
 
 // vis_only: write vis, depth and world only (normal, lam, prev_y, prev_x,
 // albedo and out_albedo may then be null). counts (null: not counted): see
-// geometry_kernel.
+// geometry_kernel. The output planes hold ``rows`` rows of the frame from
+// global row ``row_offset`` on.
 extern "C" int ptsf_geometry(const float* table, int num_tris, const float* params, int width,
-                             int height, float slope, float t_max, float eps, float* vis,
-                             float* depth, float* normal, float* lam, int* prev_y, int* prev_x,
-                             float* world, const float* albedo, float* out_albedo, int vis_only,
-                             int* counts, cudaStream_t stream) {
-  dim3 grid((width + kBlockW - 1) / kBlockW, (height + kBlockH - 1) / kBlockH);
+                             int height, int row_offset, int rows, float slope, float t_max,
+                             float eps, float* vis, float* depth, float* normal, float* lam,
+                             int* prev_y, int* prev_x, float* world, const float* albedo,
+                             float* out_albedo, int vis_only, int* counts, cudaStream_t stream) {
+  if (row_offset < 0 || rows < 1 || row_offset + rows > height) return (int)cudaErrorInvalidValue;
+  dim3 grid((width + kBlockW - 1) / kBlockW, (rows + kBlockH - 1) / kBlockH);
   size_t smem = sizeof(float) * num_tris * kStride;
   GeoOut o = {vis, depth, normal, lam, prev_y, prev_x, world, albedo, out_albedo};
   bool count = counts != nullptr;
   DenseFn kernel = vis_only ? pick_dense<true>(count) : pick_dense<false>(count);
   kernel<<<grid, kTileBlock, smem, stream>>>(
-      table, num_tris, params, width, height, slope, t_max, eps, o, counts);
+      table, num_tris, params, width, height, row_offset, rows, slope, t_max, eps, o, counts);
   return (int)cudaGetLastError();
 }
 
 extern "C" int ptsf_geometry_bvh(const float* nodes, const float* tris, const float* v0,
                                  const float* e1, const float* e2, const float* lut_normals,
                                  const float* lut, const float* lut_prev, const float* params,
-                                 int width, int height, float slope, float t_max, float eps,
-                                 float* vis, float* depth, float* normal, float* lam,
-                                 int* prev_y, int* prev_x, float* world, const float* albedo,
-                                 float* out_albedo, int vis_only, int* counts, int* seen_node,
-                                 int* seen_tri, unsigned long long* lanes,
+                                 int width, int height, int row_offset, int rows, float slope,
+                                 float t_max, float eps, float* vis, float* depth, float* normal,
+                                 float* lam, int* prev_y, int* prev_x, float* world,
+                                 const float* albedo, float* out_albedo, int vis_only, int* counts,
+                                 int* seen_node, int* seen_tri, unsigned long long* lanes,
                                  cudaStream_t stream) {
-  dim3 grid((width + kBlockW - 1) / kBlockW, (height + kBlockH - 1) / kBlockH);
+  if (row_offset < 0 || rows < 1 || row_offset + rows > height) return (int)cudaErrorInvalidValue;
+  dim3 grid((width + kBlockW - 1) / kBlockW, (rows + kBlockH - 1) / kBlockH);
   BvhScene sc = {reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(tris),
                  v0, e1, e2, nullptr, nullptr};
   GeoOut o = {vis, depth, normal, lam, prev_y, prev_x, world, albedo, out_albedo};
   bool count = counts != nullptr;
   BvhFn kernel = vis_only ? pick_bvh<true>(count) : pick_bvh<false>(count);
   kernel<<<grid, kTileBlock, 0, stream>>>(
-      sc, lut_normals, lut, lut_prev, params, width, height, slope, t_max, eps, o, counts,
-      seen_node, seen_tri, lanes);
+      sc, lut_normals, lut, lut_prev, params, width, height, row_offset, rows, slope, t_max, eps,
+      o, counts, seen_node, seen_tri, lanes);
   return (int)cudaGetLastError();
 }

@@ -46,6 +46,12 @@
 // pixel, each sample's path length and the lane efficiency of the bounce
 // loop and of the triangle loops, for chip_smoke.py) are template
 // parameters, chosen at launch.
+//
+// A row slab (row_offset, rows: the row-sharded frame of parallel/, the TPU
+// kernel's row_offset): the work counter runs over rows x width pixels,
+// pixel p is global pixel (p % width, row_offset + p / width), whose seed,
+// jitter and ray it traces, and the outputs hold rows x width pixels. The
+// defaults (0, height) are the whole frame.
 
 #include "bounce.cuh"
 
@@ -63,6 +69,7 @@ struct TraceOut {
   // [next pixel to fetch, blocks finished]: zero at the start of a launch,
   // and reset by its last block (launches that share them run in order)
   int* fetch;
+  int row_offset, rows;  // the slab: rows x width pixels from global row row_offset
 };
 
 // params: cam[0:3] rot[3:12] light_pos[12:15] light_color_hdr[15:18]
@@ -76,7 +83,7 @@ __global__ void __launch_bounds__(kBlock)
   stage_rows(smem, table, num_tris);
   __syncthreads();
 
-  const int npix = a.width * a.height;
+  const int npix = a.width * o.rows;
   const V3 cam = load3(prm);
   const V3 light_pos = load3(prm + 12);
   const V3 light_hdr = load3(prm + 15);
@@ -115,7 +122,7 @@ __global__ void __launch_bounds__(kBlock)
         pix = base + __popc(want & lanes_below());
         if (pix < npix) {
           x = pix % a.width;
-          y = pix / a.width;
+          y = o.row_offset + pix / a.width;
           b = s = 0;
           summed = total = {0.0f, 0.0f, 0.0f};
           batch_state = seed_per_pixel((uint32_t)x, (uint32_t)y, (uint32_t)a.frame, 0u);
@@ -171,7 +178,8 @@ TraceFn pick_trace(bool count) {
 }  // namespace
 
 extern "C" int ptsf_trace(const float* table, int num_tris, const float* params, int width,
-                          int height, int frame, int max_bounces, int spp, int batches,
+                          int height, int row_offset, int rows, int frame, int max_bounces,
+                          int spp, int batches,
                           float slope, float aa_sigma, float ray_eps, float t_max, float eps,
                           float light_r, float light_r2, float first_dim,
                           int light_through_walls, int nee, int rr_start, float rr_min,
@@ -181,14 +189,15 @@ extern "C" int ptsf_trace(const float* table, int num_tris, const float* params,
                  slope,   aa_sigma, ray_eps, t_max,       eps,       light_r,
                  light_r2, first_dim, light_through_walls, rr_start, truncate, rr_min,
                  rr_max};
-  TraceOut o = {out, tests_out, path_len, lanes, fetch};
+  if (row_offset < 0 || rows < 1 || row_offset + rows > height) return (int)cudaErrorInvalidValue;
+  TraceOut o = {out, tests_out, path_len, lanes, fetch, row_offset, rows};
   size_t smem = sizeof(float4) * kRowVec * num_tris;
   bool count = tests_out != nullptr || path_len != nullptr || lanes != nullptr;
   TraceFn kernel = nee ? (rr_start > 0 ? pick_trace<true, true>(count)
                                        : pick_trace<true, false>(count))
                        : (rr_start > 0 ? pick_trace<false, true>(count)
                                        : pick_trace<false, false>(count));
-  int pixel_blocks = (width * height + kBlock - 1) / kBlock;
+  int pixel_blocks = (width * rows + kBlock - 1) / kBlock;
   int grid = resident_blocks(kernel, kBlock, smem);
   if (grid > pixel_blocks) grid = pixel_blocks;
   kernel<<<grid, kBlock, smem, stream>>>(table, num_tris, params, a, o);

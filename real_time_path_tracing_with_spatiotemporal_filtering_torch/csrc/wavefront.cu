@@ -19,7 +19,11 @@
 // the explicit-pixel mode (the pixel-list half of the TPU kernel, its
 // trace_pixels_wavefront: the path gradient's stratum pixels, the multi-res
 // coarse tail). The seed is always that of the global pixel, so a ray traces
-// what that pixel of a full frame would, bit for bit.
+// what that pixel of a full frame would, bit for bit. A row slab of the
+// frame (the row-sharded frame of parallel/; the TPU kernel's row_offset)
+// gives the kernel its first global row: ray i is then pixel
+// (i % width, row_offset + i / width), and n = rows x width; the live lists
+// and the ray state are sized to the slab.
 //
 // What bounds it on the H100: the walks' dependent loads (a node row, then
 // its children) and divergence, not bytes: a live ray moves 108 bytes of
@@ -78,8 +82,9 @@ constexpr int kBlock = 256;
 
 struct SegArgs {
   int n, seg, batch, sample;
-  const int* px;  // explicit pixels (both null: ray i is pixel i of the frame)
+  const int* px;  // explicit pixels (both null: ray i is pixel i of the slab)
   const int* py;
+  int row_offset;  // the slab's first global row (frame order only)
 };
 
 // The live lists of a launch (ops/cuda/wavefront.LiveLists): three rotating
@@ -114,7 +119,7 @@ __device__ __forceinline__ bool segment_ray(const BvhTable& sc, const float* __r
       y = s.py[i];
     } else {
       x = i % a.width;
-      y = i / a.width;
+      y = s.row_offset + i / a.width;
     }
     uint32_t st = seed_per_pixel((uint32_t)x, (uint32_t)y, (uint32_t)a.frame, (uint32_t)s.batch);
     for (int k = 0; k < 2 * s.sample; ++k) st = st * 747796405u + 1u;
@@ -268,7 +273,8 @@ SegmentFn pick_segment(bool count) {
 extern "C" int ptsf_trace_segment(const float* nodes, const float* tris, const float* v0,
                                   const float* e1, const float* e2, const float* normals,
                                   const float* albedo, const float* params, int n, int width,
-                                  int height, int frame, int batch, int sample, int seg,
+                                  int height, int row_offset, int frame, int batch, int sample,
+                                  int seg,
                                   float slope, float aa_sigma, float ray_eps, float t_max,
                                   float eps, float light_r, float light_r2, float first_dim,
                                   int light_through_walls, int nee, int rr_start, float rr_min,
@@ -283,7 +289,7 @@ extern "C" int ptsf_trace_segment(const float* nodes, const float* tris, const f
   TraceArgs a = {width,   height,   frame,   0,     1,        1,        slope,
                  aa_sigma, ray_eps, t_max,   eps,   light_r,  light_r2, first_dim,
                  light_through_walls, rr_start, 0, rr_min, rr_max};
-  SegArgs s = {n, seg, batch, sample, px, py};
+  SegArgs s = {n, seg, batch, sample, px, py, row_offset};
   LiveArgs live = {live_in, live_in_ctr, live_out, live_out_ctr, live_zero_ctr};
   bool count = counts != nullptr;  // ``lanes`` is written only with the other counts
   SegmentFn kernel = nee ? (rr_start > 0 ? pick_segment<true, true>(count)

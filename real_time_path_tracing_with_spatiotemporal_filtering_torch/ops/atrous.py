@@ -55,19 +55,37 @@ def shift_clamped(img, dy: int, dx: int):
     return img[rows][:, cols]
 
 
-def atrous_iteration(color, normal_img, depth, k: int, cfg):
+def _tap(img, j: int, i: int, k: int, halo: int):
+    """The neighbour at (j k rows, i k columns). ``halo`` 0: edge-clamped on
+    both axes. ``halo`` >= k: the rows carry ``halo`` neighbour rows on each
+    side (a row-sharded slab, its halo exchanged by parallel/sharding.py),
+    read without a clamp; the columns stay clamped."""
+    if halo == 0:
+        return shift_clamped(img, j * k, i * k)
+    h = img.shape[0] - 2 * halo
+    return shift_clamped(img[halo + j * k: halo + j * k + h], 0, i * k)
+
+
+def _centre(img, halo: int):
+    """The rows of ``img`` past its ``halo`` rows on each side."""
+    return img[halo: img.shape[0] - halo] if halo else img
+
+
+def atrous_iteration(color, normal_img, depth, k: int, cfg, halo: int = 0):
     """One wavelet iteration at stride k (waveletTransformOddIteration,
-    temporalFiltering.comp.glsl:118-155)."""
-    cp, np_, dp = color, normal_img, depth
+    temporalFiltering.comp.glsl:118-155). ``halo`` > 0: the inputs carry
+    ``halo`` >= k neighbour rows on each side and the output drops them
+    (the row-sharded frame, parallel/)."""
+    cp, np_, dp = _centre(color, halo), _centre(normal_img, halo), _centre(depth, halo)
     num = torch.zeros_like(cp)
     den = torch.zeros_like(dp)
     # GLSL loops i (x offset) outer, j (y offset) inner -- same accumulation
     # order keeps fp summation comparable.
     for i in (-1, 0, 1):
         for j in (-1, 0, 1):
-            cq = shift_clamped(color, j * k, i * k)
-            nq = shift_clamped(normal_img, j * k, i * k)
-            dq = shift_clamped(depth, j * k, i * k)
+            cq = _tap(color, j, i, k, halo)
+            nq = _tap(normal_img, j, i, k, halo)
+            dq = _tap(depth, j, i, k, halo)
             w_n = torch.pow(
                 torch.clamp_min(cam_ops.dot3(np_, nq), 0.0), cfg.sigma_n
             )
@@ -111,20 +129,23 @@ def luminance_planes(r, g, b):
 # the variance filtered alongside the color.
 
 
-def _box5(x):
+def _box5(x, halo: int = 0):
     """5x5 edge-clamped box filter (spatial moment estimate for young
-    history; a plain box as the cheap stand-in for SVGF's 7x7 bilateral)."""
-    acc = torch.zeros_like(x)
+    history; a plain box as the cheap stand-in for SVGF's 7x7 bilateral).
+    ``halo`` >= 2: rows pre-padded by the caller (the sharded frame)."""
+    acc = torch.zeros_like(_centre(x, halo))
     for dy in range(-2, 3):
         for dx in range(-2, 3):
-            acc = acc + shift_clamped(x, dy, dx)
+            acc = acc + _tap(x, dy, dx, 1, halo)
     return acc * _f32(1.0 / 25.0)
 
 
-def spatial_variance(lum):
-    """5x5 spatial luminance variance estimate (young-history fallback)."""
-    s1 = _box5(lum)
-    s2 = _box5(lum * lum)
+def spatial_variance(lum, halo: int = 0):
+    """5x5 spatial luminance variance estimate (young-history fallback).
+    With ``halo`` the input rows are pre-padded and the output drops
+    them."""
+    s1 = _box5(lum, halo)
+    s2 = _box5(lum * lum, halo)
     return torch.clamp_min(s2 - s1 * s1, 0.0)
 
 
@@ -154,7 +175,8 @@ def modulate(color, scale):
     return color * scale[..., None]
 
 
-def accumulate_moments(lum, prev_moments, prev_y, prev_x, frame_idx: int, cfg):
+def accumulate_moments(lum, prev_moments, prev_y, prev_x, frame_idx: int, cfg,
+                       var_spatial=None, reproj=None):
     """Temporal EMA of the (mu1, mu2) luminance moments at the backprojected
     pixel; ``lum`` is the current frame's luminance plane. Returns
     (new_moments (H, W, 2), variance (H, W)).
@@ -163,17 +185,24 @@ def accumulate_moments(lum, prev_moments, prev_y, prev_x, frame_idx: int, cfg):
     first cfg.variance_boost_frames frames a 5x5 spatial estimate of the
     current frame's moments substitutes. The frame index is a host int, so
     the spatial estimate is computed only in those frames (the JAX package
-    computes it every frame and selects; the values are the same)."""
+    computes it every frame and selects; the values are the same).
+    ``var_spatial``: a precomputed :func:`spatial_variance` (the sharded
+    frame's, over exchanged rows). ``reproj``: the previous moments already
+    gathered at (prev_y, prev_x) (the sharded frame's
+    parallel/sharding.reproject_rows_sharded); ``prev_moments`` is then not
+    read."""
     m_now = torch.stack([lum, lum * lum], dim=-1)
     if frame_idx > 0:
+        if reproj is None:
+            reproj = prev_moments[prev_y, prev_x]
         a = np.float32(cfg.moments_alpha)
-        m = prev_moments[prev_y, prev_x] * float(np.float32(1.0) - a) + m_now * float(a)
+        m = reproj * float(np.float32(1.0) - a) + m_now * float(a)
     else:
         m = m_now
     if frame_idx >= cfg.variance_boost_frames:
         var = torch.clamp_min(m[..., 1] - m[..., 0] * m[..., 0], 0.0)
     else:
-        var = spatial_variance(lum)
+        var = spatial_variance(lum) if var_spatial is None else var_spatial
     return m, var
 
 
@@ -193,17 +222,24 @@ def normal_class(normal, vis):
 
 
 def accumulate_age(prev_age, prev_y, prev_x, lam, frame_idx: int, cfg,
-                   prev_vis, cur_vis):
+                   prev_vis, cur_vis, reproj=None, reproj_vis=None):
     """Per-pixel consecutive-history length N for the SVGF accumulation ramp
     (cfg.accumulation_ramp): N follows the backprojected history pixel,
     increments every frame, clamps at cfg.ramp_age_cap, and resets to 1 on
     frame 0, where the temporal gradient exceeds cfg.ramp_reset_lam, or
     where the consistency plane (visibility ids or :func:`normal_class`
-    keys) of the history pixel differs from the current one."""
+    keys) of the history pixel differs from the current one. ``reproj`` /
+    ``reproj_vis``: the previous age / consistency plane already gathered
+    at (prev_y, prev_x) (the sharded frame); ``prev_age`` / ``prev_vis``
+    are then not read."""
     if frame_idx <= 0:
         return torch.ones_like(lam)
-    n = torch.clamp_max(prev_age[prev_y, prev_x] + 1.0, _f32(cfg.ramp_age_cap))
-    reset = (lam > _f32(cfg.ramp_reset_lam)) | (prev_vis[prev_y, prev_x] != cur_vis)
+    if reproj is None:
+        reproj = prev_age[prev_y, prev_x]
+    if reproj_vis is None:
+        reproj_vis = prev_vis[prev_y, prev_x]
+    n = torch.clamp_max(reproj + 1.0, _f32(cfg.ramp_age_cap))
+    reset = (lam > _f32(cfg.ramp_reset_lam)) | (reproj_vis != cur_vis)
     return torch.where(reset, torch.ones_like(n), n)
 
 
@@ -225,25 +261,27 @@ _GAUSS3 = tuple(
 )
 
 
-def _gauss3(x):
+def _gauss3(x, halo: int = 0):
     """3x3 gaussian prefilter of the variance (SVGF eq. 5), edge-clamped,
-    as a direct 9-tap sum in row-major tap order."""
-    g = torch.zeros_like(x)
+    as a direct 9-tap sum in row-major tap order (``halo`` as in
+    :func:`_box5`)."""
+    g = torch.zeros_like(_centre(x, halo))
     for dy, dx, wgt in _GAUSS3:
-        g = g + wgt * shift_clamped(x, dy, dx)
+        g = g + wgt * _tap(x, dy, dx, 1, halo)
     return g
 
 
-def atrous_iteration_var(color, var, normal_img, depth, k: int, cfg):
+def atrous_iteration_var(color, var, normal_img, depth, k: int, cfg, halo: int = 0):
     """One variance-guided wavelet iteration at stride k.
 
     Same taps, normal and depth weights as :func:`atrous_iteration`; the
     luminance weight is |l_p - l_q| over the gaussian-prefiltered stddev
     (SVGF eq. 5), and the variance is propagated as
     var' = sum (h w)^2 var_q / (sum h w)^2. Divides where the TPU kernel
-    multiplies by reciprocals: the XLA route made the goldens."""
-    cp, np_, dp = color, normal_img, depth
-    g = _gauss3(var)
+    multiplies by reciprocals: the XLA route made the goldens. ``halo`` as
+    in :func:`atrous_iteration`."""
+    cp, np_, dp = _centre(color, halo), _centre(normal_img, halo), _centre(depth, halo)
+    g = _gauss3(var, halo)
     lp = luminance(cp)
     denom_l = _f32(cfg.sigma_l) * torch.sqrt(g) + _f32(cfg.variance_eps)
     num = torch.zeros_like(cp)
@@ -251,10 +289,10 @@ def atrous_iteration_var(color, var, normal_img, depth, k: int, cfg):
     den = torch.zeros_like(dp)
     for i in (-1, 0, 1):
         for j in (-1, 0, 1):
-            cq = shift_clamped(color, j * k, i * k)
-            nq = shift_clamped(normal_img, j * k, i * k)
-            dq = shift_clamped(depth, j * k, i * k)
-            vq = shift_clamped(var, j * k, i * k)
+            cq = _tap(color, j, i, k, halo)
+            nq = _tap(normal_img, j, i, k, halo)
+            dq = _tap(depth, j, i, k, halo)
+            vq = _tap(var, j, i, k, halo)
             w_n = torch.pow(
                 torch.clamp_min(cam_ops.dot3(np_, nq), 0.0), cfg.sigma_n
             )
@@ -275,11 +313,13 @@ def atrous_filter_var(color, var, normal_img, depth, cfg):
     return out, v
 
 
-def backproject_pixels(gbuf, lut_prev, view_prev, proj_prev, cfg):
+def backproject_pixels(gbuf, lut_prev, view_prev, proj_prev, cfg, row_offset: int = 0):
     """Previous-frame integer pixel of each surface pixel
     (temporalFiltering.comp.glsl:213-239). Background keeps its own pixel.
-    Returns int64 (py, px) planes."""
-    h, w = gbuf.visibility.shape
+    Returns int64 (py, px) planes of GLOBAL frame coordinates, clamped to
+    the frame; ``row_offset``: the global row of the G-buffer's first row
+    (a row slab of the sharded frame)."""
+    h, w = cfg.height, cfg.width
     prim = gbuf.visibility.to(torch.int64)
     tri_prev = lut_prev[prim]
     v1p, v2p, v3p = tri_prev[..., 0, :], tri_prev[..., 1, :], tri_prev[..., 2, :]
@@ -289,7 +329,8 @@ def backproject_pixels(gbuf, lut_prev, view_prev, proj_prev, cfg):
     world_prev = bary[..., 0:1] * v1p + bary[..., 1:2] * v2p + bary[..., 2:3] * v3p
     screen = cam_ops.world_to_pixel(world_prev, view_prev, proj_prev, w, h)
 
-    own_y, own_x = pixel_grid(h, w, screen.device)
+    own_y, own_x = pixel_grid(gbuf.visibility.shape[0], w, screen.device)
+    own_y = own_y + row_offset
     background = gbuf.visibility < 1.0
     sx = torch.where(background, own_x.to(torch.float32), screen[..., 0])
     sy = torch.where(background, own_y.to(torch.float32), screen[..., 1])
@@ -304,8 +345,17 @@ def backproject_pixels(gbuf, lut_prev, view_prev, proj_prev, cfg):
     return py.clamp(0, h - 1), px.clamp(0, w - 1)
 
 
+def gather_window(plane, prev_y, prev_x, row0: int = 0):
+    """``plane`` gathered at (prev_y, prev_x), where ``plane`` holds the
+    frame's rows from global row ``row0`` on: row prev_y - row0 clamped to
+    the plane (a reprojection window of the sharded frame, or a whole
+    plane at ``row0`` 0, where the clamp changes nothing)."""
+    rows = (prev_y.long() - row0).clamp_(0, plane.shape[0] - 1)
+    return plane[rows, prev_x.long()]
+
+
 def temporal_accumulate_at(filtered, prev_image, prev_y, prev_x, frame_idx, lam, cfg,
-                           age=None):
+                           age=None, reprojected=None):
     """EMA blend with precomputed backprojection coordinates: gather the
     history at (prev_y, prev_x) and blend (temporalFiltering.comp.glsl:
     242-263). ``lam`` drives adaptive alpha when cfg.adaptive_alpha (the
@@ -313,10 +363,14 @@ def temporal_accumulate_at(filtered, prev_image, prev_y, prev_x, frame_idx, lam,
 
     ``age``: the current frame's history length (:func:`accumulate_age`)
     when cfg.accumulation_ramp; the blend then uses :func:`ramp_alpha`
-    instead of the fixed ema_alpha."""
+    instead of the fixed ema_alpha.
+
+    ``reprojected``: the history already gathered at (prev_y, prev_x) (the
+    sharded frame); ``prev_image`` is then not read."""
     if frame_idx <= 0:
         return filtered
-    reprojected = prev_image[prev_y, prev_x]
+    if reprojected is None:
+        reprojected = prev_image[prev_y, prev_x]
     if cfg.accumulation_ramp and age is not None:
         alpha = ramp_alpha(age, lam, cfg)
     else:

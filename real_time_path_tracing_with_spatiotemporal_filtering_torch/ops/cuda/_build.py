@@ -4,7 +4,9 @@ Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all at once, and
 linked into one shared library with a plain C interface, loaded with ctypes. The build happens at first
 use, into ``_build/`` beside the package (listed in ``.gitignore``), under a
 name keyed by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+rebuilt and an unchanged one is loaded as it is. A file lock in ``_build/``
+lets one process build while the others (the ranks of the sharded frame)
+wait for its library.
 
 Flags: ``sm_90a`` (Hopper). No ``--use_fast_math`` and no flush-to-zero:
 the Box-Muller clamp ``max(1e-38, u1)`` is subnormal in float32 and would
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -73,12 +76,21 @@ def _library_path() -> str:
 
 def build() -> str:
     """Compile the kernels if their library is missing; returns its path.
-    One nvcc per source, all started together, then one link."""
-    global build_log
+    One nvcc per source, all started together, then one link, under a file
+    lock that other processes building the same library wait on."""
     out = _library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(out):
+            _compile(out)
+    return out
+
+
+def _compile(out: str) -> None:
+    global build_log
     tmp = f"{out}.{os.getpid()}.tmp"
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
@@ -102,53 +114,53 @@ def build() -> str:
             if os.path.exists(obj):
                 os.remove(obj)
     os.replace(tmp, out)
-    return out
 
 
 def signatures() -> dict:
     """The argument types of each C entry point of the library, by name."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return {
-        # table, num_tris, params, width, height, slope, t_max, eps,
-        # vis, depth, normal, lam, prev_y, prev_x, world, albedo,
+        # table, num_tris, params, width, height, row_offset, rows, slope,
+        # t_max, eps, vis, depth, normal, lam, prev_y, prev_x, world, albedo,
         # out_albedo (null: no albedo planes), vis_only, counts (null: not
         # counted), stream
-        "ptsf_geometry": [p, i, p, i, i, f, f, f, p, p, p, p, p, p, p, p, p, i, p, p],
-        # table, num_tris, params, width, height, frame, max_bounces, spp,
-        # batches, slope, aa_sigma, ray_eps, t_max, eps, light_r, light_r2,
+        "ptsf_geometry": [p, i, p, i, i, i, i, f, f, f, p, p, p, p, p, p, p, p, p, i, p, p],
+        # table, num_tris, params, width, height, row_offset, rows, frame,
+        # max_bounces, spp, batches, slope, aa_sigma, ray_eps, t_max, eps, light_r, light_r2,
         # first_dim, light_through_walls, nee, rr_start, rr_min, rr_max,
         # truncate, fetch, out, tests_out, path_len, lanes (all three null:
         # not counted), stream
-        "ptsf_trace": [p, i, p, i, i, i, i, i, i, f, f, f, f, f, f, f, f, i, i, i, f, f, i,
+        "ptsf_trace": [p, i, p, i, i, i, i, i, i, i, i, f, f, f, f, f, f, f, f, i, i, i, f, f, i,
                        p, p, p, p, p, p],
-        # color_in, normal, depth, color_out, width, height, k, sigma_n,
-        # sigma_z, sigma_l, stream
-        "ptsf_atrous_iter": [p, p, p, p, i, i, i, f, f, f, p],
+        # color_in, normal, depth (height + 2 halo rows), color_out, width,
+        # height, halo, k, sigma_n, sigma_z, sigma_l, stream
+        "ptsf_atrous_iter": [p, p, p, p, i, i, i, i, f, f, f, p],
         # color_in, var_in, normal, depth, color_out, var_out, width, height,
-        # k, sigma_n, sigma_z, sigma_l, variance_eps, stream
-        "ptsf_atrous_iter_var": [p, p, p, p, p, p, i, i, i, f, f, f, f, p],
+        # halo, k, sigma_n, sigma_z, sigma_l, variance_eps, stream
+        "ptsf_atrous_iter_var": [p, p, p, p, p, p, i, i, i, i, f, f, f, f, p],
         # filtered, prev_image, prev_y, prev_x, lam, out, width, height,
-        # alpha, adaptive, frame, stream
-        "ptsf_temporal_blend": [p, p, p, p, p, p, i, i, f, i, i, p],
+        # src_height, src_row0, alpha, adaptive, frame, stream
+        "ptsf_temporal_blend": [p, p, p, p, p, p, i, i, i, i, f, i, i, p],
         # filtered, prev_image, prev_y, prev_x, lam, prev_age, prev_cons,
-        # cur_cons, out, age_out, width, height, alpha_min, reset_lam,
-        # age_cap, adaptive, frame, stream
-        "ptsf_temporal_blend_ramp": [p, p, p, p, p, p, p, p, p, p, i, i, f, f, f, i, i, p],
+        # cur_cons, out, age_out, width, height, src_height, src_row0,
+        # alpha_min, reset_lam, age_cap, adaptive, frame, stream
+        "ptsf_temporal_blend_ramp": [p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, f, i, i, p],
         # nodes, tris, v0, e1, e2, lut_normals, lut, lut_prev, params, width,
-        # height, slope, t_max, eps, vis, depth, normal, lam, prev_y, prev_x,
-        # world, albedo, out_albedo (null: none), vis_only, counts,
-        # seen_node, seen_tri (all three null: not counted), lanes (null:
-        # not counted), stream
-        "ptsf_geometry_bvh": [p] * 9 + [i, i, f, f, f] + [p] * 9 + [i] + [p] * 4 + [p],
+        # height, row_offset, rows, slope, t_max, eps, vis, depth, normal,
+        # lam, prev_y, prev_x, world, albedo, out_albedo (null: none),
+        # vis_only, counts, seen_node, seen_tri (all three null: not
+        # counted), lanes (null: not counted), stream
+        "ptsf_geometry_bvh": [p] * 9 + [i, i, i, i, f, f, f] + [p] * 9 + [i] + [p] * 4 + [p],
         # nodes, tris, v0, e1, e2, normals, albedo, params, n, width, height,
-        # frame, batch, sample, seg, slope, aa_sigma, ray_eps, t_max, eps,
+        # row_offset (frame order: ray i is pixel i of the slab from that
+        # global row), frame, batch, sample, seg, slope, aa_sigma, ray_eps, t_max, eps,
         # light_r, light_r2, first_dim, light_through_walls, nee, rr_start,
         # rr_min, rr_max, px, py (both null: ray i is pixel i of the frame),
         # live_in (null: every slot), live_in_ctr, live_out, live_out_ctr,
         # live_zero_ctr, rays, state, alive, counts, seen_node,
         # seen_tri (all three null: not counted), lanes (null: not counted),
         # stream
-        "ptsf_trace_segment": [p] * 8 + [i] * 7 + [f] * 8 + [i] * 3 + [f, f] + [p] * 14 + [p],
+        "ptsf_trace_segment": [p] * 8 + [i] * 8 + [f] * 8 + [i] * 3 + [f, f] + [p] * 14 + [p],
         # nodes, tris, origins, dirs, cap, mask, n, width (0: the rays are
         # in no frame order), t_max, eps, occluded, counts, seen_node,
         # seen_tri (all three null: not counted), lanes (null: not

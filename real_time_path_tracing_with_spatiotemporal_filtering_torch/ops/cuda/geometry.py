@@ -8,7 +8,10 @@ camera rays and the triangle tables, so the filter and the blend read
 planes instead of per-pixel LUT gathers. :func:`visibility_pass` runs the
 same kernels in their visibility-only mode, the drop-in for
 ops/gbuffer.visibility_pass. The dense kernel culls its table per warp
-tile of 8x4 pixels; ops/tilecull.py is that cull's plain twin.
+tile of 8x4 pixels; ops/tilecull.py is that cull's plain twin. Every pass
+takes ``row_offset``/``rows``: it then renders the slab of ``rows`` rows
+from global row ``row_offset`` on (the row-sharded frame, parallel/), its
+rays, cull and backprojection those of the global pixels.
 """
 
 from __future__ import annotations
@@ -47,18 +50,19 @@ class GeometryBuffers(NamedTuple):
 def geometry_pass_plain(tri_data, lut_prev, camera_pos, rotation, light_pos,
                         light_pos_prev, light_color, light_color_prev, view,
                         proj, view_prev, proj_prev, cfg,
-                        emit_albedo: bool = False) -> GeometryBuffers:
+                        emit_albedo: bool = False, row_offset: int = 0,
+                        rows: int | None = None) -> GeometryBuffers:
     """The plain PyTorch version: ops.gbuffer, ops.gradient and
     ops.atrous.backproject_pixels, plus the filter normal lut_normals[vis]
     and, with ``emit_albedo``, ops.atrous.albedo_image."""
     gbuf = gbuffer.visibility_pass(
-        tri_data, camera_pos, view, proj, cfg, rotation=rotation
+        tri_data, camera_pos, view, proj, cfg, rotation=rotation, row_offset=row_offset, rows=rows
     )
     lam = gradient.temporal_gradient_pass(
         gbuf, tri_data.lut, lut_prev, camera_pos, light_pos, light_pos_prev,
         light_color, light_color_prev,
     )
-    py, px = atrous.backproject_pixels(gbuf, lut_prev, view_prev, proj_prev, cfg)
+    py, px = atrous.backproject_pixels(gbuf, lut_prev, view_prev, proj_prev, cfg, row_offset)
     normal = tri_data.lut_normals[gbuf.visibility.to(torch.int64)]
     return GeometryBuffers(
         visibility=gbuf.visibility,
@@ -90,8 +94,18 @@ def _params(camera_pos, rotation, light_pos, light_pos_prev, light_color,
     return params
 
 
-def _buffers(cfg, dev, emit_albedo: bool) -> GeometryBuffers:
-    h, w = cfg.height, cfg.width
+def slab(cfg, row_offset: int, rows: int | None) -> int:
+    """The rows of a pass's slab (``rows``, default the frame's); raises
+    unless the slab lies in the frame."""
+    rows = cfg.height if rows is None else int(rows)
+    if row_offset < 0 or rows < 1 or row_offset + rows > cfg.height:
+        raise ValueError(f"rows [{row_offset}, {row_offset + rows}) outside a frame of "
+                         f"{cfg.height} rows")
+    return rows
+
+
+def _buffers(cfg, dev, emit_albedo: bool, rows: int) -> GeometryBuffers:
+    h, w = rows, cfg.width
     f32 = dict(dtype=torch.float32, device=dev)
     return GeometryBuffers(
         visibility=torch.empty((h, w), **f32),
@@ -114,28 +128,31 @@ def _outputs(out: GeometryBuffers) -> tuple:
 def geometry_pass(tri_data, lut_prev, camera_pos, rotation, light_pos,
                   light_pos_prev, light_color, light_color_prev, view, proj,
                   view_prev, proj_prev, cfg, emit_albedo: bool = False,
-                  counts=None) -> GeometryBuffers:
+                  counts=None, row_offset: int = 0, rows: int | None = None) -> GeometryBuffers:
     """G-buffer, temporal gradient and backprojection in one kernel launch,
     with the albedo planes when ``emit_albedo`` (plain version for CPU
-    tensors). ``counts``: optional (2, H*W) int32 tensor that receives
+    tensors). ``counts``: optional (2, rows*W) int32 tensor that receives
     each pixel's triangle tests and its warp tile's cull survivors
     (:func:`dense_counts`), for counting the work of a launch."""
     args = (tri_data, lut_prev, camera_pos, rotation, light_pos,
             light_pos_prev, light_color, light_color_prev, view, proj,
             view_prev, proj_prev, cfg)
+    n_rows = slab(cfg, row_offset, rows)
     if camera_pos.device.type == "cpu":
         if counts is not None:
-            counts.copy_(dense_counts_plain(tri_data, camera_pos, rotation, cfg))
-        return geometry_pass_plain(*args, emit_albedo=emit_albedo)
+            counts.copy_(dense_counts_plain(tri_data, camera_pos, rotation, cfg, row_offset,
+                                            n_rows))
+        return geometry_pass_plain(*args, emit_albedo=emit_albedo, row_offset=row_offset,
+                                   rows=n_rows)
     t = tri_data.num_triangles
     table = _dense_table(tri_data, lut_prev)
     params = _params(*args[2:12])
-    out = _buffers(cfg, table.device, emit_albedo)
+    out = _buffers(cfg, table.device, emit_albedo, n_rows)
     albedo = tri_data.albedo.contiguous()
     _build.check_cuda("albedo", albedo, torch.float32, (t, 3))
     _build.launch(
         "ptsf_geometry",
-        table.data_ptr(), t, params.data_ptr(), cfg.width, cfg.height,
+        table.data_ptr(), t, params.data_ptr(), cfg.width, cfg.height, int(row_offset), n_rows,
         cam_ops.fov_slope(cfg.fov),
         float(np.float32(cfg.t_max)),
         float(np.float32(cfg.intersect_eps)),
@@ -143,29 +160,36 @@ def geometry_pass(tri_data, lut_prev, camera_pos, rotation, light_pos,
         albedo.data_ptr(),
         out.albedo.data_ptr() if emit_albedo else None,
         0,
-        _dense_count_pointer(counts, cfg),
+        _dense_count_pointer(counts, cfg, n_rows),
     )
     return out
 
 
-def dense_counts(cfg, device) -> torch.Tensor:
-    """Zeroed counters for a dense geometry launch at ``cfg``'s size: row 0
-    each pixel's triangle tests, row 1 the survivors of its warp tile's
-    cull (ops/tilecull.py)."""
-    return torch.zeros((2, cfg.height * cfg.width), dtype=torch.int32, device=device)
+def dense_counts(cfg, device, rows: int | None = None) -> torch.Tensor:
+    """Zeroed counters for a dense geometry launch at ``cfg``'s size, or
+    over ``rows`` rows of a slab: row 0 each pixel's triangle tests, row 1
+    the survivors of its warp tile's cull (ops/tilecull.py)."""
+    rows = cfg.height if rows is None else rows
+    return torch.zeros((2, rows * cfg.width), dtype=torch.int32, device=device)
 
 
-def dense_counts_plain(tri_data, camera_pos, rotation, cfg) -> torch.Tensor:
+def dense_counts_plain(tri_data, camera_pos, rotation, cfg, row_offset: int = 0,
+                       rows: int | None = None) -> torch.Tensor:
     """What a counting launch of the dense kernel writes into ``counts``,
-    from the cull's plain twin (ops/tilecull.py)."""
+    from the cull's plain twin (ops/tilecull.py); over a slab whose first
+    row starts a row of warp tiles, those pixels of the frame's."""
+    rows = cfg.height if rows is None else rows
+    if row_offset % tilecull.TILE[1]:
+        raise ValueError(f"a slab from row {row_offset} does not start a row of warp tiles")
     survivors = tilecull.tile_survivors_plain(tri_data.planes, camera_pos, rotation, cfg)
-    return tilecull.tile_counts_plain(survivors, cfg)
+    counts = tilecull.tile_counts_plain(survivors, cfg)
+    return counts[:, row_offset * cfg.width:(row_offset + rows) * cfg.width]
 
 
-def _dense_count_pointer(counts, cfg) -> int | None:
+def _dense_count_pointer(counts, cfg, rows: int) -> int | None:
     if counts is None:
         return None
-    _build.check_cuda("counts", counts, torch.int32, (2, cfg.height * cfg.width))
+    _build.check_cuda("counts", counts, torch.int32, (2, rows * cfg.width))
     return counts.data_ptr()
 
 
@@ -254,32 +278,35 @@ def check_bvh(tri_data) -> None:
 def geometry_pass_bvh(tri_data, lut_prev, camera_pos, rotation, light_pos,
                       light_pos_prev, light_color, light_color_prev, view, proj,
                       view_prev, proj_prev, cfg, emit_albedo: bool = False,
-                      counts=None, lanes=None) -> GeometryBuffers:
+                      counts=None, lanes=None, row_offset: int = 0,
+                      rows: int | None = None) -> GeometryBuffers:
     """:func:`geometry_pass` through the LBVH (one kernel launch; plain
     version for CPU tensors). ``counts``: optional :class:`WalkCounts` of
-    H*W rays that receives each pixel's triangle tests and box tests and
+    rows*W rays that receives each pixel's triangle tests and box tests and
     marks the rows read, for counting the work of a launch; with it,
     ``lanes`` (optional) accumulates the lane counts (:func:`lane_pointer`)."""
     args = (tri_data, lut_prev, camera_pos, rotation, light_pos,
             light_pos_prev, light_color, light_color_prev, view, proj,
             view_prev, proj_prev, cfg)
+    n_rows = slab(cfg, row_offset, rows)
     if camera_pos.device.type == "cpu":
-        return geometry_pass_plain(*args, emit_albedo=emit_albedo)
+        return geometry_pass_plain(*args, emit_albedo=emit_albedo, row_offset=row_offset,
+                                   rows=n_rows)
     t = tri_data.num_triangles
     check_bvh(tri_data)
     _build.check_cuda("lut", tri_data.lut, torch.float32, (t + 1, 3, 3))
     _build.check_cuda("lut_prev", lut_prev, torch.float32, (t + 1, 3, 3))
     _build.check_cuda("lut_normals", tri_data.lut_normals, torch.float32, (t + 1, 3))
-    count_ptrs = count_pointers(counts, cfg.width * cfg.height, tri_data)
+    count_ptrs = count_pointers(counts, cfg.width * n_rows, tri_data)
     params = _params(*args[2:12])
-    out = _buffers(cfg, params.device, emit_albedo)
+    out = _buffers(cfg, params.device, emit_albedo, n_rows)
     planes = tri_data.planes
     _build.launch(
         "ptsf_geometry_bvh",
         tri_data.bvh.nodes.data_ptr(), tri_data.bvh.tris.data_ptr(),
         planes.v0.data_ptr(), planes.e1.data_ptr(), planes.e2.data_ptr(),
         tri_data.lut_normals.data_ptr(), tri_data.lut.data_ptr(), lut_prev.data_ptr(),
-        params.data_ptr(), cfg.width, cfg.height,
+        params.data_ptr(), cfg.width, cfg.height, int(row_offset), n_rows,
         cam_ops.fov_slope(cfg.fov),
         float(np.float32(cfg.t_max)),
         float(np.float32(cfg.intersect_eps)),
@@ -294,7 +321,8 @@ def geometry_pass_bvh(tri_data, lut_prev, camera_pos, rotation, light_pos,
 
 
 def visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=None,
-                    counts=None, lanes=None) -> gbuffer.GBuffer:
+                    counts=None, lanes=None, row_offset: int = 0,
+                    rows: int | None = None) -> gbuffer.GBuffer:
     """The G-buffer of ops/gbuffer.visibility_pass (visibility, world
     position, depth) in one launch of the geometry kernels' visibility-only
     mode: the dense kernel below ops/intersect.BVH_MIN_TRIANGLES
@@ -305,12 +333,16 @@ def visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=None,
     if not intersect.uses_bvh(tri_data):
         if lanes is not None:
             raise ValueError("lanes are counted on LBVH scenes only")
-        return visibility_pass_dense(tri_data, camera_pos, view, proj, cfg, rotation, counts)
+        return visibility_pass_dense(tri_data, camera_pos, view, proj, cfg, rotation, counts,
+                                     row_offset, rows)
+    n_rows = slab(cfg, row_offset, rows)
     if camera_pos.device.type == "cpu":
-        return gbuffer.visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=rotation)
+        return gbuffer.visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=rotation,
+                                       row_offset=row_offset, rows=n_rows)
     if rotation is None:
         rotation = torch.eye(3, dtype=torch.float32, device=camera_pos.device)
-    params, out, pointers, scalars = _visibility_launch(camera_pos, view, proj, cfg, rotation)
+    params, out, pointers, scalars = _visibility_launch(camera_pos, view, proj, cfg, rotation,
+                                                        row_offset, n_rows)
     t = tri_data.num_triangles
     check_bvh(tri_data)
     _build.check_cuda("lut", tri_data.lut, torch.float32, (t + 1, 3, 3))
@@ -322,46 +354,52 @@ def visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=None,
         planes.v0.data_ptr(), planes.e1.data_ptr(), planes.e2.data_ptr(),
         tri_data.lut_normals.data_ptr(), tri_data.lut.data_ptr(), tri_data.lut.data_ptr(),
         params.data_ptr(), *scalars, *pointers, None, None, 1,
-        *count_pointers(counts, cfg.width * cfg.height, tri_data), lane_pointer(lanes, counts),
+        *count_pointers(counts, cfg.width * n_rows, tri_data), lane_pointer(lanes, counts),
         label="geometry_bvh[visibility]",
     )
     return out
 
 
-def _visibility_launch(camera_pos, view, proj, cfg, rotation):
+def _visibility_launch(camera_pos, view, proj, cfg, rotation, row_offset: int, rows: int):
     """The visibility-only mode's parameters (the gradient's and the
     backprojection's are not read), its output planes and their pointers,
     and the kernels' scalar arguments."""
     zeros3 = torch.zeros(3, dtype=torch.float32, device=camera_pos.device)
     params = _params(camera_pos, rotation, zeros3, zeros3, zeros3, zeros3, view, proj, view, proj)
-    h, w = cfg.height, cfg.width
+    h, w = rows, cfg.width
     f32 = dict(dtype=torch.float32, device=params.device)
     out = gbuffer.GBuffer(visibility=torch.empty((h, w), **f32),
                           world_pos=torch.empty((h, w, 3), **f32),
                           depth=torch.empty((h, w), **f32))
     pointers = (out.visibility.data_ptr(), out.depth.data_ptr(), None, None, None, None,
                 out.world_pos.data_ptr())
-    scalars = (w, h, cam_ops.fov_slope(cfg.fov), float(np.float32(cfg.t_max)),
+    scalars = (w, cfg.height, int(row_offset), rows, cam_ops.fov_slope(cfg.fov),
+               float(np.float32(cfg.t_max)),
                float(np.float32(cfg.intersect_eps)))
     return params, out, pointers, scalars
 
 
 def visibility_pass_dense(tri_data, camera_pos, view, proj, cfg, rotation=None,
-                          counts=None) -> gbuffer.GBuffer:
+                          counts=None, row_offset: int = 0,
+                          rows: int | None = None) -> gbuffer.GBuffer:
     """:func:`visibility_pass` through the dense kernel, on any scene its
     table holds (plain version for CPU tensors). ``counts``: as in
     :func:`geometry_pass`."""
     eye = torch.eye(3, dtype=torch.float32, device=camera_pos.device)
+    n_rows = slab(cfg, row_offset, rows)
     if camera_pos.device.type == "cpu":
         if counts is not None:
             counts.copy_(dense_counts_plain(
-                tri_data, camera_pos, eye if rotation is None else rotation, cfg))
-        return gbuffer.visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=rotation)
+                tri_data, camera_pos, eye if rotation is None else rotation, cfg, row_offset,
+                n_rows))
+        return gbuffer.visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=rotation,
+                                       row_offset=row_offset, rows=n_rows)
     params, out, pointers, scalars = _visibility_launch(
-        camera_pos, view, proj, cfg, eye if rotation is None else rotation)
+        camera_pos, view, proj, cfg, eye if rotation is None else rotation, row_offset, n_rows)
     table = _dense_table(tri_data, tri_data.lut)
     _build.launch(
         "ptsf_geometry", table.data_ptr(), tri_data.num_triangles, params.data_ptr(), *scalars,
-        *pointers, None, None, 1, _dense_count_pointer(counts, cfg), label="geometry[visibility]",
+        *pointers, None, None, 1, _dense_count_pointer(counts, cfg, n_rows),
+        label="geometry[visibility]",
     )
     return out

@@ -15,6 +15,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
 )
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import pathtrace
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import _build
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.geometry import slab
 
 # The kernel's triangle rows (csrc/bounce.cuh DenseTable): the 12
 # ray/triangle test constants first, as three 16-byte groups (n, d0 | n1, d1
@@ -50,18 +51,23 @@ def pack_table(tri_data) -> torch.Tensor:
 
 
 def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation, tests=None,
-                    path_len=None, lanes=None):
+                    path_len=None, lanes=None, row_offset: int = 0, rows: int | None = None):
     """Noisy radiance (H, W, 3) of one frame (plain version for CPU
-    tensors). Optional CUDA tensors that select the counting instantiation,
+    tensors); with ``row_offset``/``rows``, (rows, W, 3) of the slab of
+    ``rows`` rows from global row ``row_offset`` on (the row-sharded frame),
+    each pixel traced as in the whole frame. Optional CUDA tensors that
+    select the counting instantiation,
     for measuring the work of a launch: ``tests`` (H, W) int32 receives the
     ray/triangle tests each pixel ran (nearest-hit walks and NEE shadow
     walks); ``path_len`` (sample_batches * spp, H, W) int32 the segments
     each sample's path ran; ``lanes`` (4,) int64 accumulates the lane
     efficiency: lanes that ran a bounce and warp steps of the bounce loop,
     lanes that ran a triangle test and warp steps of the triangle loops."""
+    h = slab(cfg, row_offset, rows)
     if camera_pos.device.type == "cpu":
         return path_trace_pass_plain(
-            tri_data, camera_pos, light, frame_idx, cfg, rotation=rotation
+            tri_data, camera_pos, light, frame_idx, cfg, rotation=rotation,
+            row_offset=row_offset, rows=h,
         )
     t = tri_data.num_triangles
     if t > MAX_TRIANGLES:
@@ -80,7 +86,7 @@ def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation, tests
     ).contiguous()
     _build.check_cuda("table", table, torch.float32, (t, ROW_FLOATS))
     _build.check_cuda("params", params, torch.float32, (18,))
-    h, w = cfg.height, cfg.width
+    w = cfg.width
     if tests is not None:
         _build.check_cuda("tests", tests, torch.int32, (h, w))
     if path_len is not None:
@@ -94,7 +100,7 @@ def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation, tests
 
     _build.launch(
         "ptsf_trace",
-        table.data_ptr(), t, params.data_ptr(), w, h, int(frame_idx),
+        table.data_ptr(), t, params.data_ptr(), w, cfg.height, int(row_offset), h, int(frame_idx),
         cfg.max_bounces, cfg.spp, cfg.sample_batches,
         cam_ops.fov_slope(cfg.fov),
         f32(cfg.aa_sigma),

@@ -13,7 +13,10 @@ one-launch tracer's bit for bit. Under cfg.gbuffer_primary bounce 0 is
 replayed off the G-buffer in PyTorch (ops/pathtrace.primary_carry) and its
 NEE shadow rays go through :func:`shadow_segment`; the segments then run
 from 1. Seeds are those of the global pixels, so a list of pixels traces
-what those pixels of a full frame would.
+what those pixels of a full frame would. A row slab of the frame (the
+row-sharded frame of parallel/: ``row_offset``, ``rows``) is traced in
+frame order from its first global row, which the segment kernel is given;
+its ray state and live lists hold rows x width rays.
 
 :func:`trace_segment` and :func:`shadow_segment` launch the kernels of
 ``csrc/wavefront.cu`` for tensors on a CUDA device and run their plain
@@ -42,6 +45,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.geometr
     check_bvh,
     count_pointers,
     lane_pointer,
+    slab,
 )
 
 
@@ -119,23 +123,23 @@ def live_lists(n: int, device) -> LiveLists:
     return lists
 
 
-def _pixels(n: int, width: int, device, pixels=None):
+def _pixels(n: int, width: int, device, pixels=None, row_offset: int = 0):
     """The rays' global (px, py): ``pixels`` when given, else ray i at
-    pixel (i % width, i // width) of the frame."""
+    pixel (i % width, row_offset + i // width) of the frame."""
     if pixels is not None:
         return pixels
     idx = torch.arange(n, device=device)
-    return idx % width, torch.div(idx, width, rounding_mode="floor")
+    return idx % width, torch.div(idx, width, rounding_mode="floor") + row_offset
 
 
 def trace_segment_plain(rays: RayState, seg, batch, sample, tri_data, camera_pos, rotation,
-                        light, frame_idx, cfg, pixels=None) -> None:
+                        light, frame_idx, cfg, pixels=None, row_offset: int = 0) -> None:
     """The plain version of one segment: ops/pathtrace.bounce_step over the
     flat arrays, with ops/intersect.scene_nearest_hit; segment 0 first
     generates the camera rays as ops/pathtrace.trace_pixels does."""
     n = rays.alive.shape[0]
     if seg == 0:
-        px, py = _pixels(n, cfg.width, rays.f.device, pixels)
+        px, py = _pixels(n, cfg.width, rays.f.device, pixels, row_offset)
         state, gx, gy = rng_ops.sample_jitter(px, py, frame_idx, batch, sample)
         d = cam_ops.pixel_rays(px, py, cfg.width, cfg.height, cfg.fov,
                                jitter_x=cfg.aa_sigma * gx, jitter_y=cfg.aa_sigma * gy,
@@ -170,7 +174,7 @@ class SegmentLaunches:
     place)."""
 
     def __init__(self, rays: RayState, tri_data, camera_pos, rotation, light, frame_idx, cfg,
-                 counts=None, pixels=None, lanes=None, lists=None):
+                 counts=None, pixels=None, lanes=None, lists=None, row_offset: int = 0):
         n = rays.alive.shape[0]
         _build.check_cuda("rays.f", rays.f, torch.float32, (12, n))
         _build.check_cuda("rays.state", rays.state, torch.int32, (n,))
@@ -183,8 +187,9 @@ class SegmentLaunches:
             raise ValueError(f"live lists of {lists.capacity} slots for {n} rays")
         self.lists = lists
         if pixels is None:
-            if n != cfg.width * cfg.height:
-                raise ValueError(f"{n} rays for a {cfg.width}x{cfg.height} frame")
+            if n % cfg.width or row_offset < 0 or row_offset + n // cfg.width > cfg.height:
+                raise ValueError(f"{n} rays from row {row_offset} are not rows of a "
+                                 f"{cfg.width}x{cfg.height} frame")
             pixel_ptrs = (None, None)
         else:
             for name, t in zip(("px", "py"), pixels):
@@ -205,7 +210,7 @@ class SegmentLaunches:
             tri_data.bvh.nodes.data_ptr(), tri_data.bvh.tris.data_ptr(),
             planes.v0.data_ptr(), planes.e1.data_ptr(), planes.e2.data_ptr(),
             tri_data.normals.data_ptr(), tri_data.albedo.data_ptr(), self._params.data_ptr(),
-            n, cfg.width, cfg.height, int(frame_idx),
+            n, cfg.width, cfg.height, int(row_offset), int(frame_idx),
         )
         self._mid = (
             cam_ops.fov_slope(cfg.fov),
@@ -238,11 +243,12 @@ class SegmentLaunches:
 
 def trace_segment(rays: RayState, seg, batch, sample, tri_data, camera_pos, rotation, light,
                   frame_idx, cfg, counts=None, pixels=None, first=True, lists=None,
-                  lanes=None) -> None:
+                  lanes=None, row_offset: int = 0) -> None:
     """Segment ``seg`` of sample ``sample`` of batch ``batch``, in place on
     ``rays`` (plain version for CPU tensors). ``pixels``: the rays' global
-    (px, py), two int32 (N,) tensors; None for a whole frame, ray i at
-    pixel (i % W, i // W). ``first``: the launch starts a path and runs
+    (px, py), two int32 (N,) tensors; None for whole rows of the frame from
+    global row ``row_offset`` on, ray i at pixel (i % W, row_offset +
+    i // W). ``first``: the launch starts a path and runs
     every ray slot (at a segment after 0, those whose alive flag is set);
     else it runs the rays the launch before on ``lists`` listed, which must
     have been segment ``seg - 1`` of these rays. Either way it lists the
@@ -257,10 +263,10 @@ def trace_segment(rays: RayState, seg, batch, sample, tri_data, camera_pos, rota
     :class:`SegmentLaunches` instead."""
     if rays.f.device.type == "cpu":
         trace_segment_plain(rays, seg, batch, sample, tri_data, camera_pos, rotation, light,
-                            frame_idx, cfg, pixels)
+                            frame_idx, cfg, pixels, row_offset)
         return
     SegmentLaunches(rays, tri_data, camera_pos, rotation, light, frame_idx, cfg, counts, pixels,
-                    lanes, lists)(seg, batch, sample, first)
+                    lanes, lists, row_offset)(seg, batch, sample, first)
 
 
 def shadow_segment_plain(origins, dirs, cap, mask, tri_data, cfg) -> torch.Tensor:
@@ -305,14 +311,14 @@ def shadow_segment(origins, dirs, cap, mask, tri_data, cfg, counts=None, lanes=N
 
 
 def _seed_from_gbuffer(rays: RayState, primary, batch, sample, tri_data, camera_pos, rotation,
-                       light, frame_idx, cfg, counts, pixels=None) -> None:
+                       light, frame_idx, cfg, counts, pixels=None, row_offset: int = 0) -> None:
     """Bounce 0 off the G-buffer (cfg.gbuffer_primary): the center rays,
     ops/pathtrace.primary_carry with the NEE shadow test deferred to
     :func:`shadow_segment`, written into ``rays``. ``primary`` holds the
     G-buffer planes at the rays' pixels (``pixels`` as in
     :func:`trace_segment`)."""
     n = rays.alive.shape[0]
-    px, py = _pixels(n, cfg.width, rays.f.device, pixels)
+    px, py = _pixels(n, cfg.width, rays.f.device, pixels, row_offset)
     state, gx, gy = rng_ops.sample_jitter(px, py, frame_idx, batch, sample)
     # no primary jitter; its draws still advance the stream
     dirs = cam_ops.pixel_rays(px, py, cfg.width, cfg.height, cfg.fov,
@@ -343,19 +349,19 @@ def path_radiance(rays: RayState, cfg) -> torch.Tensor:
 
 
 def _trace_rays(tri_data, camera_pos, light, frame_idx, cfg, rotation, n, pixels, primary,
-                emit_throughput, counts):
-    """The host loop over ``n`` rays at ``pixels`` (None: the whole frame);
-    returns (3, N) radiance, and the (3, N) throughput with
-    ``emit_throughput``."""
+                emit_throughput, counts, row_offset: int = 0):
+    """The host loop over ``n`` rays at ``pixels`` (None: whole rows of the
+    frame from global row ``row_offset`` on); returns (3, N) radiance, and
+    the (3, N) throughput with ``emit_throughput``."""
     dev = camera_pos.device
     rays = RayState.empty(n, dev)
     if dev.type == "cuda":
         segment = SegmentLaunches(rays, tri_data, camera_pos, rotation, light, frame_idx, cfg,
-                                  counts, pixels)
+                                  counts, pixels, row_offset=row_offset)
     else:
         def segment(seg, batch, sample, first):
             trace_segment_plain(rays, seg, batch, sample, tri_data, camera_pos, rotation, light,
-                                frame_idx, cfg, pixels)
+                                frame_idx, cfg, pixels, row_offset)
     start = 0 if primary is None else 1
     total = torch.zeros((3, n), dtype=torch.float32, device=dev)
     thru_total = torch.zeros_like(total)
@@ -365,7 +371,7 @@ def _trace_rays(tri_data, camera_pos, light, frame_idx, cfg, rotation, n, pixels
         for sample in range(cfg.spp):
             if primary is not None:
                 _seed_from_gbuffer(rays, primary, batch, sample, tri_data, camera_pos, rotation,
-                                   light, frame_idx, cfg, counts, pixels)
+                                   light, frame_idx, cfg, counts, pixels, row_offset)
             for seg in range(start, cfg.max_bounces):
                 segment(seg, batch, sample, seg == start)
             summed = summed + path_radiance(rays, cfg)
@@ -408,16 +414,20 @@ def trace_pixels_wavefront(tri_data, camera_pos, light, frame_idx, px, py, cfg, 
 
 
 def path_trace_wavefront(tri_data, camera_pos, light, frame_idx, cfg, rotation,
-                         primary=None, emit_throughput=False, counts=None):
+                         primary=None, emit_throughput=False, counts=None,
+                         row_offset: int = 0, rows: int | None = None):
     """Noisy radiance (H, W, 3) of one frame by segments (module
     docstring), and the (H, W, 3) truncation-point throughput with
     ``emit_throughput``. ``primary``: the G-buffer planes (vis, world_pos,
     normal, albedo) of cfg.gbuffer_primary. ``counts``: optional
     ops/cuda/geometry.WalkCounts of H*W rays that accumulates the work of
-    every segment and shadow launch."""
-    n = cfg.width * cfg.height
+    every segment and shadow launch. ``row_offset``/``rows``: the slab of
+    ``rows`` rows from global row ``row_offset`` on, (rows, W, 3), with
+    ``primary`` and ``counts`` the slab's."""
+    h = slab(cfg, row_offset, rows)
+    n = cfg.width * h
     traced = _trace_rays(tri_data, camera_pos, light, frame_idx, cfg, rotation, n, None,
-                         primary, emit_throughput, counts)
+                         primary, emit_throughput, counts, row_offset)
     if emit_throughput:
-        return tuple(t.T.contiguous().view(cfg.height, cfg.width, 3) for t in traced)
-    return traced.T.contiguous().view(cfg.height, cfg.width, 3)
+        return tuple(t.T.contiguous().view(h, cfg.width, 3) for t in traced)
+    return traced.T.contiguous().view(h, cfg.width, 3)

@@ -35,16 +35,22 @@ def pixel_grid(height: int, width: int, device=None):
     return py, px
 
 
-def visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=None) -> GBuffer:
+def visibility_pass(tri_data, camera_pos, view, proj, cfg, rotation=None, row_offset: int = 0,
+                    rows: int | None = None) -> GBuffer:
     """Trace one center ray per pixel and assemble the G-buffer.
 
     ``view``/``proj`` are only used to reproduce the raster depth channel
     (clip.z/clip.w) that feeds the filter's depth edge-stopping weight
     (temporalFiltering.comp.glsl:66-69, 123).
+
+    ``row_offset``/``rows``: the pass renders ``rows`` rows (default: the
+    frame's) from global row ``row_offset`` on, a row slab of the sharded
+    frame (parallel/); rays are functions of the global pixel.
     """
-    h, w = cfg.height, cfg.width
+    h = cfg.height if rows is None else rows
+    w = cfg.width
     py, px = pixel_grid(h, w, camera_pos.device)
-    dirs = cam_ops.pixel_rays(px, py, w, h, cfg.fov, rotation=rotation)
+    dirs = cam_ops.pixel_rays(px, py + row_offset, w, cfg.height, cfg.fov, rotation=rotation)
     origins = camera_pos.expand(h, w, 3)
 
     rec = intersect.scene_nearest_hit(

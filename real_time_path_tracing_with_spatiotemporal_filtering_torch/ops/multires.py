@@ -114,12 +114,23 @@ def _int_pow(x, p: int):
     return acc
 
 
-def bilateral_upsample(coarse_planes, guide_coarse, guide_full, cfg, phase=None):
+def _edge_pad(c):
+    """One edge-clamped row on each side of ``c``."""
+    return torch.cat([c[:1], c, c[-1:]], dim=0)
+
+
+def bilateral_upsample(coarse_planes, guide_coarse, guide_full, cfg, phase=None, row_pad=None):
     """Joint-bilateral 2x2 tent upsample of (Hc, Wc) planes to (H, W).
     ``guide_coarse`` / ``guide_full``: (nx, ny, nz, depth) plane tuples at
     coarse and full resolution. Where every edge stop rejects all four
     neighbours the plain bilinear tent is used. Coarse pixels pass through
-    unchanged at any ``phase``."""
+    unchanged at any ``phase``. ``row_pad``: c -> (Hc + 2, Wc), one
+    neighbour row on each side (default: the edge clamp); the sharded frame
+    passes its 1-coarse-row halo exchange, edge-clamped at the frame's top
+    and bottom, so a slab's upsample equals those rows of the frame's (the
+    row index mod the stride is the local one: slabs start on a multiple
+    of the stride)."""
+    row_pad = _edge_pad if row_pad is None else row_pad
     s = cfg.indirect_stride
     h, w = guide_full[0].shape
     dev = guide_full[0].device
@@ -133,7 +144,7 @@ def bilateral_upsample(coarse_planes, guide_coarse, guide_full, cfg, phase=None)
     bilin = ((1.0 - fy) * (1.0 - fx), (1.0 - fy) * fx, fy * (1.0 - fx), fy * fx)
 
     def four_neighbors(c):
-        padded = torch.cat([c[:1], c, c[-1:]], dim=0)
+        padded = row_pad(c)
         top = padded[0:1]
         c10 = padded[2:]
         c01 = _shift_next(c, 1)
@@ -171,12 +182,13 @@ def bilateral_upsample(coarse_planes, guide_coarse, guide_full, cfg, phase=None)
     return tuple(out)
 
 
-def combine_planes(trunc_pl, thru_pl, full_c_pl, guide_full, cfg, phase=None):
+def combine_planes(trunc_pl, thru_pl, full_c_pl, guide_full, cfg, phase=None, row_pad=None):
     """The multi-res estimate from per-channel planes: ``trunc_pl`` /
     ``thru_pl`` the full-res (H, W) triples of the truncated trace,
     ``full_c_pl`` the coarse (Hc, Wc) triple of the full-length trace,
-    ``guide_full`` (nx, ny, nz, depth), ``phase`` the coarse grid's. Returns
-    the (r, g, b) noisy planes."""
+    ``guide_full`` (nx, ny, nz, depth), ``phase`` the coarse grid's,
+    ``row_pad`` as in :func:`bilateral_upsample`. Returns the (r, g, b)
+    noisy planes."""
     s = cfg.indirect_stride
     thru_c = tuple(_subsample(t, s, phase) for t in thru_pl)
     resid = tuple(
@@ -184,7 +196,7 @@ def combine_planes(trunc_pl, thru_pl, full_c_pl, guide_full, cfg, phase=None):
         for fc, t, tc in zip(full_c_pl, trunc_pl, thru_c)
     )
     guide_coarse = tuple(_subsample(g, s, phase) for g in guide_full)
-    up = bilateral_upsample(resid, guide_coarse, guide_full, cfg, phase=phase)
+    up = bilateral_upsample(resid, guide_coarse, guide_full, cfg, phase=phase, row_pad=row_pad)
     return tuple(t + u * th for t, u, th in zip(trunc_pl, up, thru_pl))
 
 
@@ -196,16 +208,21 @@ def split_cfgs(cfg):
     return split_cfg, tail_cfg
 
 
-def coarse_pixels(cfg, phase, device=None):
-    """The coarse tail's global (py, px) pixels, at ``phase``."""
-    py, px = coarse_grid(cfg.height, cfg.width, cfg.indirect_stride, device)
+def coarse_pixels(cfg, phase, device=None, row_offset: int = 0, rows: int | None = None):
+    """The coarse tail's global (py, px) pixels, at ``phase``; with
+    ``row_offset``/``rows``, those of the slab of ``rows`` rows from global
+    row ``row_offset`` on (a multiple of the stride)."""
+    py, px = coarse_grid(cfg.height if rows is None else rows, cfg.width, cfg.indirect_stride,
+                         device)
+    py = py + row_offset
     if phase is not None:
         py, px = py + phase[0], px + phase[1]
     return py, px
 
 
 def multires_noisy(tri_data, camera_pos, light, frame_idx: int, cfg, normal_img, depth,
-                   rotation=None, primary=None, trace_pass=None, trace_fn=None):
+                   rotation=None, primary=None, trace_pass=None, trace_fn=None,
+                   row_offset: int = 0, rows: int | None = None, row_pad=None):
     """The multi-res noisy estimate (H, W, 3): the full-res truncated trace
     and the coarse full-length trace, combined by :func:`combine_planes`.
     ``normal_img`` (H, W, 3) and ``depth`` (H, W) guide the upsample.
@@ -217,7 +234,12 @@ def multires_noisy(tri_data, camera_pos, light, frame_idx: int, cfg, normal_img,
     tracer, with ops/pathtrace.path_trace_pass' and trace_pixels'
     signatures (the defaults: the JAX package's multires_noisy_xla); the
     kernel route passes the segment tracer's (ops/cuda/wavefront), as the
-    JAX package's multires_noisy_wavefront does."""
+    JAX package's multires_noisy_wavefront does.
+
+    ``row_offset``/``rows``/``row_pad``: the slab of ``rows`` rows from
+    global row ``row_offset`` on (the sharded frame; ``row_offset`` a
+    multiple of the stride, so the slab's coarse grid is its rows of the
+    frame's), with ``row_pad`` as in :func:`bilateral_upsample`."""
     trace_pass = pathtrace.path_trace_pass if trace_pass is None else trace_pass
     trace_fn = pathtrace.trace_pixels if trace_fn is None else trace_fn
     split_cfg, tail_cfg = split_cfgs(cfg)
@@ -226,14 +248,15 @@ def multires_noisy(tri_data, camera_pos, light, frame_idx: int, cfg, normal_img,
     prim_c = None
     if primary is not None:
         prim_c = tuple(_subsample(p, s, phase) for p in primary)
+    slab = {} if rows is None else dict(row_offset=row_offset, rows=rows)
     trunc, thru = trace_pass(tri_data, camera_pos, light, frame_idx, split_cfg, rotation=rotation,
-                             emit_throughput=True, primary=primary)
-    py_c, px_c = coarse_pixels(cfg, phase, camera_pos.device)
+                             emit_throughput=True, primary=primary, **slab)
+    py_c, px_c = coarse_pixels(cfg, phase, camera_pos.device, row_offset, rows)
     full_c = trace_fn(tri_data, camera_pos, light, frame_idx, px_c, py_c, tail_cfg,
                       rotation=rotation, primary=prim_c)
     guide_full = (normal_img[..., 0], normal_img[..., 1], normal_img[..., 2], depth)
     noisy = combine_planes(
         tuple(trunc[..., i] for i in range(3)), tuple(thru[..., i] for i in range(3)),
-        tuple(full_c[..., i] for i in range(3)), guide_full, cfg, phase=phase,
+        tuple(full_c[..., i] for i in range(3)), guide_full, cfg, phase=phase, row_pad=row_pad,
     )
     return torch.stack(noisy, dim=-1)

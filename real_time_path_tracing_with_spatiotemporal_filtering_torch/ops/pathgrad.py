@@ -35,12 +35,17 @@ _OFFSET_BATCH = 0x9E3779B9
 _NINTH = float(np.float32(1.0 / 9.0))
 
 
-def stratum_pixels(h: int, w: int, frame_idx: int, stratum: int, device=None):
+def stratum_pixels(h: int, w: int, frame_idx: int, stratum: int, device=None,
+                   sr_offset: int = 0, sr_rows: int | None = None):
     """The gradient pixel of each stratum this frame: int64 (gh, gw) planes
     (gy, gx), one pixel drawn uniformly inside each stratum x stratum cell
-    (clamped at the ragged image edge)."""
-    gh, gw = -(-h // stratum), -(-w // stratum)
-    sy = torch.arange(gh, device=device)[:, None].expand(gh, gw)
+    (clamped at the ragged image edge). ``sr_offset``/``sr_rows``: only
+    stratum rows [sr_offset, sr_offset + sr_rows) of the global grid (a
+    slab of the sharded frame; the draws are functions of the global
+    stratum)."""
+    gh = -(-h // stratum) if sr_rows is None else sr_rows
+    gw = -(-w // stratum)
+    sy = torch.arange(gh, device=device)[:, None].expand(gh, gw) + sr_offset
     sx = torch.arange(gw, device=device)[None, :].expand(gh, gw)
     state = rng_ops.seed_per_pixel(sx, sy, frame_idx, _OFFSET_BATCH)
     state, u1 = rng_ops.pcg_step(state)
@@ -88,33 +93,48 @@ def retrace_lambda(tri_data, light, frame_idx: int, cfg, l_old, pyg, pxg, vis_he
 
 
 def path_gradient_pass(tri_data, light, frame_idx: int, cfg, noisy_lum_prev, cam_pos_prev,
-                       cam_rot_prev, prev_y, prev_x, cur_vis, prev_vis, trace_fn=None):
+                       cam_rot_prev, prev_y, prev_x, cur_vis, prev_vis, trace_fn=None,
+                       row_offset: int = 0, src_row0: int = 0, row_pad=None):
     """The dense path-space lambda image (H, W) in [0, 1].
 
     ``noisy_lum_prev``: the previous frame's raw noisy luminance;
     ``cam_pos_prev``/``cam_rot_prev``: the camera it was traced with;
     ``prev_y``/``prev_x``: this frame's backprojection map; ``light``: the
     CURRENT light. ``trace_fn``: see :func:`retrace_lambda`.
+
+    A row slab of the sharded frame (parallel/): ``cur_vis``, ``prev_y``
+    and ``prev_x`` are the rows from global row ``row_offset`` on (whole
+    stratum rows), ``noisy_lum_prev`` and ``prev_vis`` the previous frame's
+    rows from global row ``src_row0`` on (ops/atrous.gather_window), and
+    ``row_pad`` gives the stratum grid one neighbour row a side for the box
+    filter (default: the edge clamp). The result is the slab's rows.
     """
-    h, w = cur_vis.shape
+    rows, w = cur_vis.shape
     stratum = cfg.gradient_stratum
-    gy, gx = stratum_pixels(h, w, frame_idx, stratum, cur_vis.device)
+    # a slab holds whole stratum rows, so no draw reaches past its last row
+    gy, gx = stratum_pixels(row_offset + rows, w, frame_idx, stratum, cur_vis.device,
+                            sr_offset=row_offset // stratum, sr_rows=-(-rows // stratum))
+    gy = gy - row_offset
     pyg = prev_y[gy, gx].long()
     pxg = prev_x[gy, gx].long()
     lam = retrace_lambda(
-        tri_data, light, frame_idx, cfg, noisy_lum_prev[pyg, pxg], pyg, pxg,
-        cur_vis[gy, gx], prev_vis[pyg, pxg], cam_pos_prev, cam_rot_prev, trace_fn=trace_fn,
+        tri_data, light, frame_idx, cfg, atrous.gather_window(noisy_lum_prev, pyg, pxg, src_row0),
+        pyg, pxg, cur_vis[gy, gx], atrous.gather_window(prev_vis, pyg, pxg, src_row0),
+        cam_pos_prev, cam_rot_prev, trace_fn=trace_fn,
     )
     for _ in range(cfg.gradient_filter_iters):
-        lam = box3_filter(lam)
-    return upsample_nearest(lam, stratum, h, w)
+        lam = box3_filter(lam, None if row_pad is None else row_pad(lam))
+    return upsample_nearest(lam, stratum, rows, w)
 
 
-def box3_filter(lam):
-    """One edge-clamped 3x3 box pass over the stratum grid."""
+def box3_filter(lam, padded=None):
+    """One edge-clamped 3x3 box pass over the stratum grid. ``padded``: the
+    grid with one neighbour row on each side (the sharded frame's exchanged
+    halo); rows then shift within it, columns stay clamped."""
     acc = torch.zeros_like(lam)
+    n = lam.shape[0]
     for dy in (-1, 0, 1):
-        rows = atrous.shift_clamped(lam, dy, 0)
+        rows = atrous.shift_clamped(lam, dy, 0) if padded is None else padded[1 + dy: 1 + dy + n]
         for dx in (-1, 0, 1):
             acc = acc + atrous.shift_clamped(rows, 0, dx)
     return acc * _NINTH

@@ -313,12 +313,16 @@ def trace_pixels(tri_data, camera_pos, light, frame_idx, px, py, cfg, rotation=N
 
 
 def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation=None,
-                    emit_throughput=False, primary=None):
+                    emit_throughput=False, primary=None, row_offset: int = 0,
+                    rows: int | None = None):
     """Full path-trace pass over the pixel grid: :func:`trace_pixels` at
     every pixel. Returns the noisy radiance (H, W, 3) (and the (H, W, 3)
-    truncation-point throughput with ``emit_throughput``)."""
-    py, px = pixel_grid(cfg.height, cfg.width, camera_pos.device)
+    truncation-point throughput with ``emit_throughput``).
+    ``row_offset``/``rows``: trace ``rows`` rows from global row
+    ``row_offset`` on (a slab of the sharded frame; seeds and rays are
+    those of the global pixels)."""
+    py, px = pixel_grid(cfg.height if rows is None else rows, cfg.width, camera_pos.device)
     return trace_pixels(
-        tri_data, camera_pos, light, frame_idx, px, py, cfg, rotation=rotation,
+        tri_data, camera_pos, light, frame_idx, px, py + row_offset, cfg, rotation=rotation,
         emit_throughput=emit_throughput, primary=primary,
     )

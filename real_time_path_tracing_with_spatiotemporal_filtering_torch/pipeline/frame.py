@@ -77,21 +77,22 @@ def use_kernels(cfg: RenderConfig, device: torch.device) -> bool:
 
 
 def trace_noisy(tri_data: TriangleData, camera: Camera, light: Light, frame_idx,
-                cfg: RenderConfig, kernels: bool, primary=None) -> torch.Tensor:
+                cfg: RenderConfig, kernels: bool, primary=None, **slab) -> torch.Tensor:
     """The frame's full-resolution noisy radiance (H, W, 3) outside
     cfg.indirect_split: on the plain route (``kernels`` false) the plain
     tracer; on the kernel route the segment tracer on scenes that walk the
     LBVH and wherever a G-buffer ``primary`` seeds bounce 0, else the trace
     kernel. benchmarks/quality traces its truth and its raw frame through
-    it, unseeded."""
+    it, unseeded. ``slab``: row_offset and rows of a row slab (the sharded
+    frame, parallel/)."""
     if not kernels:
         return pathtrace.path_trace_pass(tri_data, camera.position, light, frame_idx, cfg,
-                                         rotation=camera.rotation, primary=primary)
+                                         rotation=camera.rotation, primary=primary, **slab)
     if primary is not None or intersect.uses_bvh(tri_data):
         return cuda_wavefront.path_trace_wavefront(tri_data, camera.position, light, frame_idx,
-                                                   cfg, camera.rotation, primary=primary)
+                                                   cfg, camera.rotation, primary=primary, **slab)
     return cuda_pathtrace.path_trace_pass(tri_data, camera.position, light, frame_idx, cfg,
-                                          camera.rotation)
+                                          camera.rotation, **slab)
 
 
 def camera_matrices(camera, cfg: RenderConfig):
@@ -219,77 +220,144 @@ def render_frame_impl(
     return rgb, new_history
 
 
-def _render_frame_kernels(tri_data, camera, light, history, cfg: RenderConfig):
+class FrameRows:
+    """The rows a kernel-route frame renders (:func:`_render_frame_kernels`)
+    and how it reads the rows around them. This one is the whole frame: its
+    filters clamp at the frame's edges themselves (halo 0), and its history
+    gathers read the previous frame's planes where they are.
+    parallel/frame_sharded.SlabRows is one rank's row slab instead, which
+    exchanges the neighbour rows it reads."""
+
+    row_offset = 0
+    rows = None  # the frame's
+
+    def halo(self, k: int) -> int:
+        """The neighbour rows a side a stride-k filter reads from :meth:`pad`
+        (ops/cuda/atrous.atrous_filter, the variance estimate): none here,
+        the kernels clamp at the frame's edge."""
+        return 0
+
+    def pad(self, x: torch.Tensor, k: int) -> torch.Tensor:
+        """``x`` with ``k`` neighbour rows on each side, the edge row
+        repeated at the frame's top and bottom."""
+        if k == 0:
+            return x
+        edge = (k, *x.shape[1:])
+        return torch.cat([x[:1].expand(edge), x, x[-1:].expand(edge)])
+
+    def backprojected(self, prev_y: torch.Tensor) -> None:
+        """Told the frame's backprojection before the first history gather."""
+
+    def source(self, plane: torch.Tensor) -> tuple:
+        """(source, row0): the history ``plane`` as the frame gathers it, the
+        source holding the frame's rows from global row row0 on."""
+        return plane, 0
+
+
+WHOLE_FRAME = FrameRows()
+
+
+def _render_frame_kernels(tri_data, camera, light, history, cfg: RenderConfig,
+                          slab: FrameRows = WHOLE_FRAME):
     """The kernel route, in the order of the JAX package's Pallas frame:
     fused geometry kernel (dense or LBVH; with albedo planes under
     demodulate_albedo or gbuffer_primary), path-trace kernel (one launch,
     or the segment tracer on large scenes, under gbuffer_primary and under
-    indirect_split), firefly clamp, the path gradient's re-trace (segment
-    tracer, explicit pixels), demodulation, moments at the geometry
+    indirect_split), firefly clamp, demodulation, the path gradient's
+    re-trace (segment tracer, explicit pixels), moments at the geometry
     kernel's backprojection, nine a-trous launches (variance-guided or
     not), blend kernel (ramp or not), re-modulation. On CPU tensors each
     wrapper runs its plain version, which the tests use to check this
-    wiring."""
+    wiring.
+
+    ``slab``: the rows it renders (:class:`FrameRows`), by default the
+    whole frame; the history's image planes and the result are those rows.
+    The sharded frame (parallel/frame_sharded.py) renders a rank's slab
+    through it, with the halo exchanges of the JAX package's sharded frame
+    in its order."""
     frame_idx = history.frame
     view, proj = camera_matrices(camera, cfg)
+    rows = dict(row_offset=slab.row_offset, rows=slab.rows)
     large = intersect.uses_bvh(tri_data)
     geometry_pass = cuda_geometry.geometry_pass_bvh if large else cuda_geometry.geometry_pass
     geo = geometry_pass(
         tri_data, history.lut, camera.position, camera.rotation,
         light.position, history.light_pos, light.color, history.light_color,
         view, proj, history.view, history.proj, cfg,
-        emit_albedo=cfg.demodulate_albedo or cfg.gbuffer_primary,
+        emit_albedo=cfg.demodulate_albedo or cfg.gbuffer_primary, **rows,
     )
     primary = None
     if cfg.gbuffer_primary:
         primary = (geo.visibility, geo.world_pos, geo.normal, geo.albedo)
     if cfg.indirect_split:
         # the segment tracer at any scene size: with the G-buffer seed and
-        # indirect_split = 1 the full-res trace launches no segment
+        # indirect_split = 1 the full-res trace launches no segment; a slab
+        # starts on a coarse row, and the upsample's next coarse row comes
+        # through a one-coarse-row halo
         noisy = multires.multires_noisy(
             tri_data, camera.position, light, frame_idx, cfg, geo.normal, geo.depth,
             rotation=camera.rotation, primary=primary,
             trace_pass=cuda_wavefront.path_trace_wavefront,
             trace_fn=cuda_wavefront.trace_pixels_wavefront,
+            row_pad=lambda c: slab.pad(c, 1), **rows,
         )
     else:
-        noisy = trace_noisy(tri_data, camera, light, frame_idx, cfg, True, primary)
+        noisy = trace_noisy(tri_data, camera, light, frame_idx, cfg, True, primary, **rows)
     noisy_lum = atrous.luminance(noisy) if cfg.path_gradient else None
     if cfg.firefly_clamp:
         noisy = torch.clamp_max(noisy, cfg.firefly_clamp)
-    lam = geo.lam
-    if cfg.path_gradient:
-        # the stratum re-trace on the segment tracer at any scene size
-        lam = torch.maximum(lam, pathgrad.path_gradient_pass(
-            tri_data, light, frame_idx, cfg, history.noisy_lum, history.cam_pos,
-            history.cam_rot, geo.prev_y, geo.prev_x, geo.visibility, history.visibility,
-            trace_fn=cuda_wavefront.trace_pixels_wavefront,
-        ))
     demod_s = None
     if cfg.demodulate_albedo:
         demod_s = atrous.demod_scale(geo.albedo, cfg)
         noisy = atrous.demodulate(noisy, demod_s)
+
+    py, px = geo.prev_y, geo.prev_x
+    slab.backprojected(py)
+    vis_src = None
+    if cfg.path_gradient or (cfg.accumulation_ramp and cfg.ramp_reset_mode != "normal"):
+        vis_src = slab.source(history.visibility)
+    lam = geo.lam
+    if cfg.path_gradient:
+        # the stratum re-trace on the segment tracer at any scene size
+        lum_src = slab.source(history.noisy_lum)
+        lam = torch.maximum(lam, pathgrad.path_gradient_pass(
+            tri_data, light, frame_idx, cfg, lum_src[0], history.cam_pos, history.cam_rot,
+            py, px, geo.visibility, vis_src[0], trace_fn=cuda_wavefront.trace_pixels_wavefront,
+            row_offset=slab.row_offset, src_row0=lum_src[1], row_pad=lambda x: slab.pad(x, 1),
+        ))
+    age_src = cons_src = cls_cur = cur_cons = None
+    if cfg.accumulation_ramp:
+        age_src = slab.source(history.age)
+        if cfg.ramp_reset_mode == "normal":
+            cls_cur = cur_cons = atrous.normal_class(geo.normal, geo.visibility)
+            cons_src = slab.source(history.vis_class)
+        else:
+            cons_src, cur_cons = vis_src, geo.visibility
     moments = None
     if cfg.variance_guided:
-        moments, var = atrous.accumulate_moments(
-            atrous.luminance(noisy), history.moments, geo.prev_y, geo.prev_x,
-            frame_idx, cfg,
-        )
-        filtered, _ = cuda_atrous.atrous_filter_var(noisy, var, geo.normal, geo.depth, cfg)
+        mom_src = slab.source(history.moments)
+        lum = atrous.luminance(noisy)
+        # the young history's 5x5 estimate reads two rows a side
+        lum_pad = slab.pad(lum, slab.halo(2))
+        var_spatial = None
+        if frame_idx < cfg.variance_boost_frames:
+            var_spatial = atrous.spatial_variance(lum_pad, halo=slab.halo(2))
+        reproj = atrous.gather_window(mom_src[0], py, px, mom_src[1]) if frame_idx > 0 else None
+        moments, var = atrous.accumulate_moments(lum, None, py, px, frame_idx, cfg,
+                                                 var_spatial=var_spatial, reproj=reproj)
+        filtered, _ = cuda_atrous.atrous_filter_var(noisy, var, geo.normal, geo.depth, cfg, slab)
     else:
-        filtered = cuda_atrous.atrous_filter(noisy, geo.normal, geo.depth, cfg)
-    age = cls_cur = None
+        filtered = cuda_atrous.atrous_filter(noisy, geo.normal, geo.depth, cfg, slab)
+    image_src, row0 = slab.source(history.image)
+    age = None
     if cfg.accumulation_ramp:
-        prev_cons, cur_cons, cls_cur = _consistency_planes(history, geo.normal,
-                                                           geo.visibility, cfg)
         rgb, age = cuda_atrous.temporal_blend_ramp(
-            filtered, history.image, geo.prev_y, geo.prev_x, frame_idx, lam,
-            history.age, prev_cons, cur_cons, cfg,
+            filtered, image_src, py, px, frame_idx, lam, age_src[0], cons_src[0], cur_cons, cfg,
+            src_row0=row0,
         )
     else:
-        rgb = cuda_atrous.temporal_blend(
-            filtered, history.image, geo.prev_y, geo.prev_x, frame_idx, lam, cfg
-        )
+        rgb = cuda_atrous.temporal_blend(filtered, image_src, py, px, frame_idx, lam, cfg,
+                                         src_row0=row0)
     new_history = _next_history(rgb, geo.visibility, tri_data, view, proj, light, camera,
                                 frame_idx, cfg, moments, age, cls_cur, noisy_lum)
     if demod_s is not None:
