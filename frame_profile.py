@@ -16,10 +16,12 @@ intervals) and kernel launches per frame (``utils/profiling.device_time``),
 its idle share, each kernel's device ms and launches per
 frame, and, for a kernel launched several times a frame, its mean device us
 at each position in the frame. The static camera and light leave every frame's work the same.
-The plain PyTorch parts of the path gradient and the multi-res split
-(``ops/pathgrad.path_gradient_pass`` with its ``box3_filter`` passes, and
-``ops/multires.combine_planes``) run inside ``torch.profiler`` ranges during
-the profiled frames, and the kernels they launch are reported per range.
+The plain PyTorch parts of the path gradient and the multi-res split are
+reported apart, by the program's own stage spans (``utils/profiling.span``):
+the kernels launched inside ``frame.pathgrad`` (the path gradient's
+re-trace and its max with the proxy), ``pathgrad.box3`` (each
+``box3_filter`` pass) and ``multires.combine`` (``combine_planes``), under
+the keys ``path_gradient_pass``, ``box3_filter`` and ``combine_planes``.
 Exits non-zero if a configuration fails to run.
 
 Configurations: ``default`` is ``RenderConfig()`` (1000x800), and
@@ -54,7 +56,6 @@ import time
 
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.device import card_line
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling import (
-    annotated,
     device_time,
     kernel_events,
     kernel_name,
@@ -78,9 +79,10 @@ PATHGRAD512 = dict(width=512, height=512, variance_guided=True, accumulation_ram
                    path_gradient=True)
 # moved scenes: the configuration each one moves
 MOVED = {"moved_1080p": "default_1080p", "stress32m": "stress32"}
-# plain PyTorch functions whose kernels are reported apart: (module, name)
-RANGES = (("pathgrad", "path_gradient_pass"), ("pathgrad", "box3_filter"),
-          ("multires", "combine_planes"))
+# plain PyTorch stages whose kernels are reported apart: printed key -> the
+# program's span
+RANGES = {"path_gradient_pass": "frame.pathgrad", "box3_filter": "pathgrad.box3",
+          "combine_planes": "multires.combine"}
 
 
 def _renderer(pt, name: str):
@@ -97,13 +99,6 @@ def _renderer(pt, name: str):
         r.camera = pt.Camera.orbit([0.0, 1.0, 0.0], 6.0, 0.0, 1.0, device=r.device)
         return r
     return getattr(presets, f"cornell_box_{name}")()
-
-
-def _annotated_ranges():
-    """The RANGES functions inside profiler ranges of their names."""
-    from real_time_path_tracing_with_spatiotemporal_filtering_torch import ops
-
-    return annotated([(getattr(ops, mod), name, name) for mod, name in RANGES])
 
 
 def _stepper(r, name: str):
@@ -140,7 +135,7 @@ def profile(pt, name: str, out: str) -> dict:
     wall_ms = 1e3 * (time.perf_counter() - t0) / FRAMES
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with _annotated_ranges(), torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(FRAMES):
             step()
@@ -153,12 +148,12 @@ def profile(pt, name: str, out: str) -> dict:
     busy = device_time(kernels, FRAMES)
     busy_ms = busy["device_ms"]
     ranges = {}
-    for _, label in RANGES:
+    for key, label in RANGES.items():
         inside = range_kernels(events, label)
         if inside:
-            ranges[label] = dict(_per_kernel(inside),
-                                 ms=sum(e["dur"] for e in inside) / 1e3 / FRAMES,
-                                 launches_per_frame=len(inside) / FRAMES)
+            ranges[key] = dict(_per_kernel(inside),
+                               ms=sum(e["dur"] for e in inside) / 1e3 / FRAMES,
+                               launches_per_frame=len(inside) / FRAMES)
     return dict(
         config=name, width=r.cfg.width, height=r.cfg.height, frames=FRAMES,
         ms_per_frame=wall_ms, ms_per_frame_profiled=prof_ms, device_busy_ms=busy_ms,

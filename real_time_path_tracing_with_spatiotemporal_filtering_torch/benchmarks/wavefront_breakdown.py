@@ -1,15 +1,19 @@
-"""Where the segment tracer's time goes, from profiler ranges.
+"""Where the segment tracer's time goes, from the program's spans.
 
 The JAX package's ``benchmarks/wavefront_breakdown.py`` on the port. The
 TPU script doubled each phase of its streamed traversal and read the
-difference; here every phase is its own launch or host call, so
-``torch.profiler`` ranges around them give each phase's time directly:
-the G-buffer seed of bounce 0 (ops/cuda/wavefront._seed_from_gbuffer, under
-``--primary``), the shadow segment it launches under NEE (a range inside
-the seed's), each
-``trace_segment`` launch by segment, and the epilogue (path_radiance). For
-each range: the device ms and launches of the kernels launched inside it
-and the host ms spent in it, per frame (utils/profiling.range_kernels);
+difference; here every phase is its own launch or host call, and the
+segment tracer records each as a ``torch.profiler`` range of its own
+(utils/profiling.span), which gives each phase's time directly: the
+G-buffer seed of bounce 0 (``trace.seed``, ops/cuda/wavefront._seed_from_gbuffer,
+under ``--primary``), the shadow segment it launches under NEE
+(``trace.shadow``, a range inside the seed's), each ``trace_segment``
+launch by segment (``trace.segment[k]``), and the epilogue
+(``trace.radiance``, path_radiance), printed under the keys
+``gbuffer_seed``, ``shadow_segment``, ``trace_segment[k]`` and
+``path_radiance``. For each range: the device ms and launches of the
+kernels launched inside it and the host ms spent in it, per frame
+(utils/profiling.range_kernels);
 and the frame's host ms unprofiled and profiled and the device's busy ms.
 As the JAX script does, it checks that the profiled frame is bit-identical
 to the unprofiled one. Prints one JSON line. Usage:
@@ -47,20 +51,17 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils import dev
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils import profiling
 
 
-def ranges(cfg) -> tuple[list, list]:
-    """The annotated functions ((owner, attribute, label)) and the labels
-    of their ranges, in frame order."""
-    targets = [
-        (wf, "_seed_from_gbuffer", "gbuffer_seed"),
-        (wf, "shadow_segment", "shadow_segment"),
-        (wf.SegmentLaunches, "__call__", lambda self, seg, *a, **k: f"trace_segment[{seg}]"),
-        (wf, "trace_segment_plain", lambda rays, seg, *a, **k: f"trace_segment[{seg}]"),
-        (wf, "path_radiance", "path_radiance"),
-    ]
+def ranges(cfg) -> dict[str, str]:
+    """The segment tracer's span names by the key printed for each, in
+    frame order."""
+    out = {}
+    if cfg.gbuffer_primary:
+        out.update(gbuffer_seed="trace.seed", shadow_segment="trace.shadow")
     start = 1 if cfg.gbuffer_primary else 0
-    labels = (["gbuffer_seed", "shadow_segment"] if cfg.gbuffer_primary else [])
-    labels += [f"trace_segment[{s}]" for s in range(start, cfg.max_bounces)] + ["path_radiance"]
-    return targets, labels
+    out.update({f"trace_segment[{s}]": f"trace.segment[{s}]"
+                for s in range(start, cfg.max_bounces)})
+    out["path_radiance"] = "trace.radiance"
+    return out
 
 
 def breakdown(td, cfg, frames: int, dev) -> dict:
@@ -87,9 +88,8 @@ def breakdown(td, cfg, frames: int, dev) -> dict:
         trace()
     profiling.sync()
     wall_ms = (time.perf_counter() - t0) / frames * 1000.0
-    targets, labels = ranges(cfg)
     with tempfile.TemporaryDirectory() as tmp:
-        with profiling.annotated(targets), profiling.trace(tmp):
+        with profiling.trace(tmp):
             t0 = time.perf_counter()
             for _ in range(frames):
                 out = trace()
@@ -100,9 +100,9 @@ def breakdown(td, cfg, frames: int, dev) -> dict:
     on_card = dev.type == "cuda"
     kernels = profiling.kernel_events(events)
     phases = {}
-    for label in labels:
+    for key, label in ranges(cfg).items():
         inside = profiling.range_kernels(events, label)
-        phases[label] = {
+        phases[key] = {
             "host_ms": profiling.range_host_us(events, label) / 1e3 / frames,
             "device_ms": sum(e["dur"] for e in inside) / 1e3 / frames if on_card else None,
             "launches": len(inside) / frames if on_card else None,

@@ -24,7 +24,10 @@ PyTorch versions for tensors on the CPU. Every segment is launched and
 nothing is read back to the host, so a frame's launch count is fixed.
 Every launch writes the list of the rays that go on (:class:`LiveLists`).
 The first launch of a path runs every ray slot; each later one runs only
-the rays still alive, from the list the launch before wrote.
+the rays still alive, from the list the launch before wrote. While a
+profiler records, the host loop's phases are ranges (utils/profiling.span):
+``trace.seed`` with ``trace.shadow`` inside it, ``trace.segment[k]`` and
+``trace.radiance``.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda.geometr
     lane_pointer,
     slab,
 )
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling import span
 
 
 class RayState(NamedTuple):
@@ -332,8 +336,10 @@ def _seed_from_gbuffer(rays: RayState, primary, batch, sample, tri_data, camera_
     if cfg.nee:
         w_l, s_t, bank, mask = carry[6]
         cap = torch.where(mask, s_t, torch.zeros_like(s_t))
-        lit = mask & ~shadow_segment(o, w_l, cap, mask, tri_data, cfg, counts,
-                                     width=cfg.width if pixels is None else None)
+        with span("trace.shadow"):
+            occluded = shadow_segment(o, w_l, cap, mask, tri_data, cfg, counts,
+                                      width=cfg.width if pixels is None else None)
+        lit = mask & ~occluded
         result = result + torch.where(lit[:, None], bank, torch.zeros_like(bank))
     rays.store(o, d, accum, result, state, alive)
 
@@ -370,11 +376,15 @@ def _trace_rays(tri_data, camera_pos, light, frame_idx, cfg, rotation, n, pixels
         thru_sum = torch.zeros_like(total)
         for sample in range(cfg.spp):
             if primary is not None:
-                _seed_from_gbuffer(rays, primary, batch, sample, tri_data, camera_pos, rotation,
-                                   light, frame_idx, cfg, counts, pixels, row_offset)
+                with span("trace.seed"):
+                    _seed_from_gbuffer(rays, primary, batch, sample, tri_data, camera_pos,
+                                       rotation, light, frame_idx, cfg, counts, pixels, row_offset)
             for seg in range(start, cfg.max_bounces):
-                segment(seg, batch, sample, seg == start)
-            summed = summed + path_radiance(rays, cfg)
+                with span("trace.segment", seg):
+                    segment(seg, batch, sample, seg == start)
+            with span("trace.radiance"):
+                radiance = path_radiance(rays, cfg)
+            summed = summed + radiance
             if emit_throughput:
                 thru_sum = thru_sum + path_throughput(rays)
         total = total + cam_ops.true_div(summed, float(cfg.spp))

@@ -33,6 +33,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
     pathtrace,
     rng as rng_ops,
 )
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling import span
 
 # Throughput demodulation guard: channels with |thru| below this carry a
 # residual of at most thru * L_max ~ 1e-5.
@@ -255,8 +256,10 @@ def multires_noisy(tri_data, camera_pos, light, frame_idx: int, cfg, normal_img,
     full_c = trace_fn(tri_data, camera_pos, light, frame_idx, px_c, py_c, tail_cfg,
                       rotation=rotation, primary=prim_c)
     guide_full = (normal_img[..., 0], normal_img[..., 1], normal_img[..., 2], depth)
-    noisy = combine_planes(
-        tuple(trunc[..., i] for i in range(3)), tuple(thru[..., i] for i in range(3)),
-        tuple(full_c[..., i] for i in range(3)), guide_full, cfg, phase=phase, row_pad=row_pad,
-    )
+    with span("multires.combine"):
+        noisy = combine_planes(
+            tuple(trunc[..., i] for i in range(3)), tuple(thru[..., i] for i in range(3)),
+            tuple(full_c[..., i] for i in range(3)), guide_full, cfg, phase=phase,
+            row_pad=row_pad,
+        )
     return torch.stack(noisy, dim=-1)

@@ -28,6 +28,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import (
     pathtrace,
     rng as rng_ops,
 )
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling import span
 
 # Decorrelates the stratum-offset PCG stream from the path-tracing streams
 # (pixel seeds use batch indices 0..sample_batches-1).
@@ -131,10 +132,12 @@ def box3_filter(lam, padded=None):
     """One edge-clamped 3x3 box pass over the stratum grid. ``padded``: the
     grid with one neighbour row on each side (the sharded frame's exchanged
     halo); rows then shift within it, columns stay clamped."""
-    acc = torch.zeros_like(lam)
-    n = lam.shape[0]
-    for dy in (-1, 0, 1):
-        rows = atrous.shift_clamped(lam, dy, 0) if padded is None else padded[1 + dy: 1 + dy + n]
-        for dx in (-1, 0, 1):
-            acc = acc + atrous.shift_clamped(rows, 0, dx)
-    return acc * _NINTH
+    with span("pathgrad.box3"):
+        acc = torch.zeros_like(lam)
+        n = lam.shape[0]
+        for dy in (-1, 0, 1):
+            rows = (atrous.shift_clamped(lam, dy, 0) if padded is None
+                    else padded[1 + dy: 1 + dy + n])
+            for dx in (-1, 0, 1):
+                acc = acc + atrous.shift_clamped(rows, 0, dx)
+        return acc * _NINTH

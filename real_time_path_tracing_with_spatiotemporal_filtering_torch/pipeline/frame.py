@@ -17,6 +17,11 @@ tracer's explicit-pixel mode; their gathers, box filter and upsample stay
 plain PyTorch on the card, as the JAX package leaves them to XLA. A
 per-frame model matrix moves the scene's tables first, on the kernel route
 by the two kernels of ops/cuda/model.py.
+
+While a profiler records, each frame is a ``frame`` range holding one
+range a stage (utils/profiling.span): ``frame.move``, ``frame.matrices``,
+``frame.geometry``, ``frame.trace``, ``frame.pathgrad``, ``frame.moments``,
+``frame.filter`` and ``frame.blend``, those of the stages the config runs.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.scene.scene impo
     TriangleData,
     transform_triangle_data,
 )
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.utils.profiling import span
 
 
 def walks_tree(tri_data: TriangleData, cfg: RenderConfig, kernels: bool) -> bool:
@@ -135,89 +141,103 @@ def render_frame_impl(
     (main.cpp:1465-1469). Scenes keep their route: a frame that walks the
     LBVH (:func:`walks_tree`) walks the rest pose's tree, refitted.
     """
-    kernels = use_kernels(cfg, tri_data.lut.device)
-    if model is not None:
-        move = cuda_model.transform_triangle_data if kernels else transform_triangle_data
-        tri_data = move(tri_data, model, refit=walks_tree(tri_data, cfg, kernels))
-    if kernels:
-        return _render_frame_kernels(tri_data, camera, light, history, cfg)
-    frame_idx = history.frame
-    view, proj = camera_matrices(camera, cfg)
+    with span("frame"):
+        kernels = use_kernels(cfg, tri_data.lut.device)
+        if model is not None:
+            with span("frame.move"):
+                move = cuda_model.transform_triangle_data if kernels else transform_triangle_data
+                tri_data = move(tri_data, model, refit=walks_tree(tri_data, cfg, kernels))
+        if kernels:
+            return _kernel_stages(tri_data, camera, light, history, cfg, WHOLE_FRAME)
+        return _plain_stages(tri_data, camera, light, history, cfg)
 
-    # -- pass 1: visibility G-buffer (replaces visibility.{vert,geom,frag}) --
-    gbuf = gbuffer.visibility_pass(
-        tri_data, camera.position, view, proj, cfg, rotation=camera.rotation
-    )
-    # -- pass 2: temporal gradient (temporalGradient.comp.glsl) --
-    lam = gradient.temporal_gradient_pass(
-        gbuf, tri_data.lut, history.lut, camera.position, light.position,
-        history.light_pos, light.color, history.light_color,
-    )
-    py = px = None
-    if cfg.variance_guided or cfg.accumulation_ramp or cfg.path_gradient:
-        py, px = atrous.backproject_pixels(gbuf, history.lut, history.view,
-                                           history.proj, cfg)
+
+def _plain_stages(tri_data, camera, light, history, cfg: RenderConfig):
+    """The plain route's frame (:func:`render_frame_impl`), a span a stage."""
+    frame_idx = history.frame
+    with span("frame.matrices"):
+        view, proj = camera_matrices(camera, cfg)
+    with span("frame.geometry"):
+        # -- pass 1: visibility G-buffer (replaces visibility.{vert,geom,frag}) --
+        gbuf = gbuffer.visibility_pass(
+            tri_data, camera.position, view, proj, cfg, rotation=camera.rotation
+        )
+        # -- pass 2: temporal gradient (temporalGradient.comp.glsl) --
+        lam = gradient.temporal_gradient_pass(
+            gbuf, tri_data.lut, history.lut, camera.position, light.position,
+            history.light_pos, light.color, history.light_color,
+        )
+        py = px = None
+        if cfg.variance_guided or cfg.accumulation_ramp or cfg.path_gradient:
+            py, px = atrous.backproject_pixels(gbuf, history.lut, history.view,
+                                               history.proj, cfg)
+        normal_img = tri_data.lut_normals[gbuf.visibility.to(torch.int64)]
+        primary = None
+        if cfg.gbuffer_primary:
+            # bounce 0 replayed off the G-buffer; the trace starts at segment 1
+            primary = (gbuf.visibility, gbuf.world_pos, normal_img,
+                       atrous.albedo_image(tri_data, gbuf.visibility))
     if cfg.path_gradient:
-        # A-SVGF: re-trace last frame's samples under the current light;
-        # max() with the Phong proxy (their blind spots are disjoint)
-        lam = torch.maximum(lam, pathgrad.path_gradient_pass(
-            tri_data, light, frame_idx, cfg, history.noisy_lum, history.cam_pos,
-            history.cam_rot, py, px, gbuf.visibility, history.visibility,
-        ))
-    # -- pass 3: path trace (raytrace.comp.glsl) --
-    normal_img = tri_data.lut_normals[gbuf.visibility.to(torch.int64)]
-    primary = None
-    if cfg.gbuffer_primary:
-        # bounce 0 replayed off the G-buffer; the trace starts at segment 1
-        primary = (gbuf.visibility, gbuf.world_pos, normal_img,
-                   atrous.albedo_image(tri_data, gbuf.visibility))
-    if cfg.indirect_split:
-        # full-res truncated trace + coarse full-length trace, upsampled
-        noisy = multires.multires_noisy(
-            tri_data, camera.position, light, frame_idx, cfg, normal_img, gbuf.depth,
-            rotation=camera.rotation, primary=primary,
-        )
-    else:
-        noisy = trace_noisy(tri_data, camera, light, frame_idx, cfg, False, primary)
-    # before the clamp: the re-trace next frame is unclamped
-    noisy_lum = atrous.luminance(noisy) if cfg.path_gradient else None
-    if cfg.firefly_clamp:
-        noisy = torch.clamp_max(noisy, cfg.firefly_clamp)
-    # -- pass 4: a-trous filter + temporal EMA (temporalFiltering.comp.glsl) --
-    demod_s = None
-    if cfg.demodulate_albedo:
-        # filter irradiance, not radiance: the history is carried
-        # demodulated, only the returned image is re-modulated
-        demod_s = atrous.demod_scale(atrous.albedo_image(tri_data, gbuf.visibility), cfg)
-        noisy = atrous.demodulate(noisy, demod_s)
-    age = cls_cur = None
-    if cfg.accumulation_ramp:
-        prev_cons, cur_cons, cls_cur = _consistency_planes(history, normal_img,
-                                                           gbuf.visibility, cfg)
-        age = atrous.accumulate_age(history.age, py, px, lam, frame_idx, cfg,
-                                    prev_cons, cur_cons)
-    moments = None
-    if cfg.variance_guided:
-        moments, var = atrous.accumulate_moments(
-            atrous.luminance(noisy), history.moments, py, px, frame_idx, cfg
-        )
-        filtered, _ = atrous.atrous_filter_var(noisy, var, normal_img, gbuf.depth, cfg)
-    else:
-        filtered = atrous.atrous_filter(noisy, normal_img, gbuf.depth, cfg)
-    if py is not None:
-        rgb = atrous.temporal_accumulate_at(
-            filtered, history.image, py, px, frame_idx, lam, cfg, age=age
-        )
-    else:
-        rgb = atrous.temporal_accumulate(
-            filtered, history.image, gbuf, history.lut, history.view,
-            history.proj, frame_idx, lam, cfg,
-        )
-    new_history = _next_history(rgb, gbuf.visibility, tri_data, view, proj, light, camera,
-                                frame_idx, cfg, moments, age, cls_cur, noisy_lum)
-    if demod_s is not None:
-        return atrous.modulate(rgb, demod_s), new_history
-    return rgb, new_history
+        with span("frame.pathgrad"):
+            # A-SVGF: re-trace last frame's samples under the current light;
+            # max() with the Phong proxy (their blind spots are disjoint)
+            lam = torch.maximum(lam, pathgrad.path_gradient_pass(
+                tri_data, light, frame_idx, cfg, history.noisy_lum, history.cam_pos,
+                history.cam_rot, py, px, gbuf.visibility, history.visibility,
+            ))
+    with span("frame.trace"):
+        # -- pass 3: path trace (raytrace.comp.glsl) --
+        if cfg.indirect_split:
+            # full-res truncated trace + coarse full-length trace, upsampled
+            noisy = multires.multires_noisy(
+                tri_data, camera.position, light, frame_idx, cfg, normal_img, gbuf.depth,
+                rotation=camera.rotation, primary=primary,
+            )
+        else:
+            noisy = trace_noisy(tri_data, camera, light, frame_idx, cfg, False, primary)
+        # before the clamp: the re-trace next frame is unclamped
+        noisy_lum = atrous.luminance(noisy) if cfg.path_gradient else None
+        if cfg.firefly_clamp:
+            noisy = torch.clamp_max(noisy, cfg.firefly_clamp)
+        demod_s = None
+        if cfg.demodulate_albedo:
+            # filter irradiance, not radiance: the history is carried
+            # demodulated, only the returned image is re-modulated
+            demod_s = atrous.demod_scale(atrous.albedo_image(tri_data, gbuf.visibility), cfg)
+            noisy = atrous.demodulate(noisy, demod_s)
+    with span("frame.moments"):
+        age = cls_cur = None
+        if cfg.accumulation_ramp:
+            prev_cons, cur_cons, cls_cur = _consistency_planes(history, normal_img,
+                                                               gbuf.visibility, cfg)
+            age = atrous.accumulate_age(history.age, py, px, lam, frame_idx, cfg,
+                                        prev_cons, cur_cons)
+        moments = None
+        if cfg.variance_guided:
+            moments, var = atrous.accumulate_moments(
+                atrous.luminance(noisy), history.moments, py, px, frame_idx, cfg
+            )
+    with span("frame.filter"):
+        # -- pass 4: a-trous filter + temporal EMA (temporalFiltering.comp.glsl) --
+        if cfg.variance_guided:
+            filtered, _ = atrous.atrous_filter_var(noisy, var, normal_img, gbuf.depth, cfg)
+        else:
+            filtered = atrous.atrous_filter(noisy, normal_img, gbuf.depth, cfg)
+    with span("frame.blend"):
+        if py is not None:
+            rgb = atrous.temporal_accumulate_at(
+                filtered, history.image, py, px, frame_idx, lam, cfg, age=age
+            )
+        else:
+            rgb = atrous.temporal_accumulate(
+                filtered, history.image, gbuf, history.lut, history.view,
+                history.proj, frame_idx, lam, cfg,
+            )
+        new_history = _next_history(rgb, gbuf.visibility, tri_data, view, proj, light, camera,
+                                    frame_idx, cfg, moments, age, cls_cur, noisy_lum)
+        if demod_s is not None:
+            return atrous.modulate(rgb, demod_s), new_history
+        return rgb, new_history
 
 
 class FrameRows:
@@ -274,42 +294,52 @@ def _render_frame_kernels(tri_data, camera, light, history, cfg: RenderConfig,
     whole frame; the history's image planes and the result are those rows.
     The sharded frame (parallel/frame_sharded.py) renders a rank's slab
     through it, with the halo exchanges of the JAX package's sharded frame
-    in its order."""
+    in its order. It is one ``frame`` span, as :func:`render_frame_impl`."""
+    with span("frame"):
+        return _kernel_stages(tri_data, camera, light, history, cfg, slab)
+
+
+def _kernel_stages(tri_data, camera, light, history, cfg: RenderConfig, slab: FrameRows):
+    """The kernel route's frame (:func:`_render_frame_kernels`), a span a
+    stage."""
     frame_idx = history.frame
-    view, proj = camera_matrices(camera, cfg)
+    with span("frame.matrices"):
+        view, proj = camera_matrices(camera, cfg)
     rows = dict(row_offset=slab.row_offset, rows=slab.rows)
-    large = intersect.uses_bvh(tri_data)
-    geometry_pass = cuda_geometry.geometry_pass_bvh if large else cuda_geometry.geometry_pass
-    geo = geometry_pass(
-        tri_data, history.lut, camera.position, camera.rotation,
-        light.position, history.light_pos, light.color, history.light_color,
-        view, proj, history.view, history.proj, cfg,
-        emit_albedo=cfg.demodulate_albedo or cfg.gbuffer_primary, **rows,
-    )
+    with span("frame.geometry"):
+        large = intersect.uses_bvh(tri_data)
+        geometry_pass = cuda_geometry.geometry_pass_bvh if large else cuda_geometry.geometry_pass
+        geo = geometry_pass(
+            tri_data, history.lut, camera.position, camera.rotation,
+            light.position, history.light_pos, light.color, history.light_color,
+            view, proj, history.view, history.proj, cfg,
+            emit_albedo=cfg.demodulate_albedo or cfg.gbuffer_primary, **rows,
+        )
     primary = None
     if cfg.gbuffer_primary:
         primary = (geo.visibility, geo.world_pos, geo.normal, geo.albedo)
-    if cfg.indirect_split:
-        # the segment tracer at any scene size: with the G-buffer seed and
-        # indirect_split = 1 the full-res trace launches no segment; a slab
-        # starts on a coarse row, and the upsample's next coarse row comes
-        # through a one-coarse-row halo
-        noisy = multires.multires_noisy(
-            tri_data, camera.position, light, frame_idx, cfg, geo.normal, geo.depth,
-            rotation=camera.rotation, primary=primary,
-            trace_pass=cuda_wavefront.path_trace_wavefront,
-            trace_fn=cuda_wavefront.trace_pixels_wavefront,
-            row_pad=lambda c: slab.pad(c, 1), **rows,
-        )
-    else:
-        noisy = trace_noisy(tri_data, camera, light, frame_idx, cfg, True, primary, **rows)
-    noisy_lum = atrous.luminance(noisy) if cfg.path_gradient else None
-    if cfg.firefly_clamp:
-        noisy = torch.clamp_max(noisy, cfg.firefly_clamp)
-    demod_s = None
-    if cfg.demodulate_albedo:
-        demod_s = atrous.demod_scale(geo.albedo, cfg)
-        noisy = atrous.demodulate(noisy, demod_s)
+    with span("frame.trace"):
+        if cfg.indirect_split:
+            # the segment tracer at any scene size: with the G-buffer seed and
+            # indirect_split = 1 the full-res trace launches no segment; a slab
+            # starts on a coarse row, and the upsample's next coarse row comes
+            # through a one-coarse-row halo
+            noisy = multires.multires_noisy(
+                tri_data, camera.position, light, frame_idx, cfg, geo.normal, geo.depth,
+                rotation=camera.rotation, primary=primary,
+                trace_pass=cuda_wavefront.path_trace_wavefront,
+                trace_fn=cuda_wavefront.trace_pixels_wavefront,
+                row_pad=lambda c: slab.pad(c, 1), **rows,
+            )
+        else:
+            noisy = trace_noisy(tri_data, camera, light, frame_idx, cfg, True, primary, **rows)
+        noisy_lum = atrous.luminance(noisy) if cfg.path_gradient else None
+        if cfg.firefly_clamp:
+            noisy = torch.clamp_max(noisy, cfg.firefly_clamp)
+        demod_s = None
+        if cfg.demodulate_albedo:
+            demod_s = atrous.demod_scale(geo.albedo, cfg)
+            noisy = atrous.demodulate(noisy, demod_s)
 
     py, px = geo.prev_y, geo.prev_x
     slab.backprojected(py)
@@ -318,51 +348,59 @@ def _render_frame_kernels(tri_data, camera, light, history, cfg: RenderConfig,
         vis_src = slab.source(history.visibility)
     lam = geo.lam
     if cfg.path_gradient:
-        # the stratum re-trace on the segment tracer at any scene size
-        lum_src = slab.source(history.noisy_lum)
-        lam = torch.maximum(lam, pathgrad.path_gradient_pass(
-            tri_data, light, frame_idx, cfg, lum_src[0], history.cam_pos, history.cam_rot,
-            py, px, geo.visibility, vis_src[0], trace_fn=cuda_wavefront.trace_pixels_wavefront,
-            row_offset=slab.row_offset, src_row0=lum_src[1], row_pad=lambda x: slab.pad(x, 1),
-        ))
-    age_src = cons_src = cls_cur = cur_cons = None
-    if cfg.accumulation_ramp:
-        age_src = slab.source(history.age)
-        if cfg.ramp_reset_mode == "normal":
-            cls_cur = cur_cons = atrous.normal_class(geo.normal, geo.visibility)
-            cons_src = slab.source(history.vis_class)
+        with span("frame.pathgrad"):
+            # the stratum re-trace on the segment tracer at any scene size
+            lum_src = slab.source(history.noisy_lum)
+            lam = torch.maximum(lam, pathgrad.path_gradient_pass(
+                tri_data, light, frame_idx, cfg, lum_src[0], history.cam_pos, history.cam_rot,
+                py, px, geo.visibility, vis_src[0],
+                trace_fn=cuda_wavefront.trace_pixels_wavefront, row_offset=slab.row_offset,
+                src_row0=lum_src[1], row_pad=lambda x: slab.pad(x, 1),
+            ))
+    with span("frame.moments"):
+        age_src = cons_src = cls_cur = cur_cons = None
+        if cfg.accumulation_ramp:
+            age_src = slab.source(history.age)
+            if cfg.ramp_reset_mode == "normal":
+                cls_cur = cur_cons = atrous.normal_class(geo.normal, geo.visibility)
+                cons_src = slab.source(history.vis_class)
+            else:
+                cons_src, cur_cons = vis_src, geo.visibility
+        moments = None
+        if cfg.variance_guided:
+            mom_src = slab.source(history.moments)
+            lum = atrous.luminance(noisy)
+            # the young history's 5x5 estimate reads two rows a side
+            lum_pad = slab.pad(lum, slab.halo(2))
+            var_spatial = None
+            if frame_idx < cfg.variance_boost_frames:
+                var_spatial = atrous.spatial_variance(lum_pad, halo=slab.halo(2))
+            reproj = (atrous.gather_window(mom_src[0], py, px, mom_src[1]) if frame_idx > 0
+                      else None)
+            moments, var = atrous.accumulate_moments(lum, None, py, px, frame_idx, cfg,
+                                                     var_spatial=var_spatial, reproj=reproj)
+    with span("frame.filter"):
+        if cfg.variance_guided:
+            filtered, _ = cuda_atrous.atrous_filter_var(noisy, var, geo.normal, geo.depth, cfg,
+                                                        slab)
         else:
-            cons_src, cur_cons = vis_src, geo.visibility
-    moments = None
-    if cfg.variance_guided:
-        mom_src = slab.source(history.moments)
-        lum = atrous.luminance(noisy)
-        # the young history's 5x5 estimate reads two rows a side
-        lum_pad = slab.pad(lum, slab.halo(2))
-        var_spatial = None
-        if frame_idx < cfg.variance_boost_frames:
-            var_spatial = atrous.spatial_variance(lum_pad, halo=slab.halo(2))
-        reproj = atrous.gather_window(mom_src[0], py, px, mom_src[1]) if frame_idx > 0 else None
-        moments, var = atrous.accumulate_moments(lum, None, py, px, frame_idx, cfg,
-                                                 var_spatial=var_spatial, reproj=reproj)
-        filtered, _ = cuda_atrous.atrous_filter_var(noisy, var, geo.normal, geo.depth, cfg, slab)
-    else:
-        filtered = cuda_atrous.atrous_filter(noisy, geo.normal, geo.depth, cfg, slab)
-    image_src, row0 = slab.source(history.image)
-    age = None
-    if cfg.accumulation_ramp:
-        rgb, age = cuda_atrous.temporal_blend_ramp(
-            filtered, image_src, py, px, frame_idx, lam, age_src[0], cons_src[0], cur_cons, cfg,
-            src_row0=row0,
-        )
-    else:
-        rgb = cuda_atrous.temporal_blend(filtered, image_src, py, px, frame_idx, lam, cfg,
-                                         src_row0=row0)
-    new_history = _next_history(rgb, geo.visibility, tri_data, view, proj, light, camera,
-                                frame_idx, cfg, moments, age, cls_cur, noisy_lum)
-    if demod_s is not None:
-        return atrous.modulate(rgb, demod_s), new_history
-    return rgb, new_history
+            filtered = cuda_atrous.atrous_filter(noisy, geo.normal, geo.depth, cfg, slab)
+    with span("frame.blend"):
+        image_src, row0 = slab.source(history.image)
+        age = None
+        if cfg.accumulation_ramp:
+            rgb, age = cuda_atrous.temporal_blend_ramp(
+                filtered, image_src, py, px, frame_idx, lam, age_src[0], cons_src[0], cur_cons,
+                cfg, src_row0=row0,
+            )
+        else:
+            rgb = cuda_atrous.temporal_blend(filtered, image_src, py, px, frame_idx, lam, cfg,
+                                             src_row0=row0)
+        new_history = _next_history(rgb, geo.visibility, tri_data, view, proj, light, camera,
+                                    frame_idx, cfg, moments, age, cls_cur, noisy_lum)
+        if demod_s is not None:
+            return atrous.modulate(rgb, demod_s), new_history
+        return rgb, new_history
 
 
 def _consistency_planes(history, normal, visibility, cfg):

@@ -2,12 +2,12 @@
 
 The port's counterpart of the JAX package's ``utils/profiling.py``:
 ``sync``, ``time_fn``, ``trace`` and ``FrameTimer``, with CUDA events and
-``torch.profiler`` in place of the TPU runtime's workarounds. It also reads
-a profiler trace: each kernel's device interval (``kernel_events``), the
-device's busy time as the union of those intervals and the launches per
-frame (``device_time``), and the device time of each launch of named
-kernels (``kernel_launch_ms``), which does not depend on the host's cost of
-making the launch.
+``torch.profiler`` in place of the TPU runtime's workarounds. It marks the
+program's stages for a profiler (``span``) and reads a profiler trace: each
+kernel's device interval (``kernel_events``), the device's busy time as the
+union of those intervals and the launches per frame (``device_time``), and
+the device time of each launch of named kernels (``kernel_launch_ms``),
+which does not depend on the host's cost of making the launch.
 """
 
 from __future__ import annotations
@@ -106,6 +106,21 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, index=None):
+    """A profiler range named ``name`` (``name[index]`` with an ``index``)
+    around a stage of the program, while a profiler is recording; otherwise
+    a shared no-op context, so that an unprofiled frame pays one flag read
+    a span (``record_function`` costs ~10 us a span even with no profiler).
+    The ranges stay in the profiler's memory; whoever holds the profiler
+    exports them."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name if index is None else f"{name}[{index}]")
+
+
 def read_events(trace_path: str) -> list[dict]:
     """The events of an exported Chrome trace."""
     with open(trace_path) as f:
@@ -127,9 +142,8 @@ def kernel_name(e) -> str:
 
 def range_kernels(events, label: str) -> list[dict]:
     """The kernels launched from the host inside the profiler ranges named
-    ``label`` (``torch.profiler.record_function``, :func:`annotated`): the
-    launch call (matched to its kernel by correlation id) starts inside the
-    range."""
+    ``label`` (the program's :func:`span`): the launch call (matched to its
+    kernel by correlation id) starts inside the range."""
     spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
              if e.get("cat") == "user_annotation" and e.get("name") == label]
     launched = {e["args"]["correlation"] for e in events
@@ -142,30 +156,6 @@ def range_host_us(events, label: str) -> float:
     """The host's microseconds inside the profiler ranges named ``label``."""
     return sum(e["dur"] for e in events
                if e.get("cat") == "user_annotation" and e.get("name") == label)
-
-
-@contextlib.contextmanager
-def annotated(targets):
-    """Run the functions of ``targets`` ((owner, attribute, label) triples:
-    a module or class and the name of a function on it) inside profiler
-    ranges of their labels while the block runs; ``label`` may be a
-    callable of the call's arguments. Restores them after."""
-    saved = []
-    for owner, attr, label in targets:
-        fn = getattr(owner, attr)
-        saved.append((owner, attr, fn))
-
-        def wrapper(*args, _fn=fn, _label=label, **kwargs):
-            name = _label(*args, **kwargs) if callable(_label) else _label
-            with torch.profiler.record_function(name):
-                return _fn(*args, **kwargs)
-
-        setattr(owner, attr, wrapper)
-    try:
-        yield
-    finally:
-        for owner, attr, fn in saved:
-            setattr(owner, attr, fn)
 
 
 def busy_us(kernels) -> float:
