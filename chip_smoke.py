@@ -87,8 +87,13 @@ filtering_torch/csrc`` with nvcc, then:
   geometry and shadow kernels' walks (lanes doing work over 32 x warp
   steps, counted by their counting instantiations) as ``lane_eff`` on the
   ``trace``, ``trace_segment``, ``geometry_bvh`` and ``shadow_segment``
-  records and modes, and checks that the segment kernel's live lists hold
-  exactly the rays that go on;
+  records and modes, beside it on the ``trace`` record and modes the dense
+  shadow loop's plane-first cut (``shadow_cut``: the share of its plane
+  pass's warp steps that its barycentric pass saved, and its whole tests
+  a pixel), and
+  checks that the dense trace's counting launch gives the timed launch's
+  image and that the segment kernel's live lists hold exactly the rays
+  that go on;
 - models, from the same runs' path lengths and walk steps, the lane
   efficiency the earlier designs of the two trace kernels (one thread per
   pixel; one thread per ray slot) would have had on the same work, and
@@ -196,10 +201,13 @@ FP32_OPS_PER_S = 67e12
 L2_BYTES = 50 * 2**20
 # Floating-point operations counted per unit of work (transcendentals count
 # as one): a ray/triangle test (six 3-term dot products, t, u, v, u + v;
-# csrc/common.cuh tri_test), one a-trous pixel (9 taps), one
+# csrc/common.cuh tri_test), a plane test of the dense trace's shadow loop
+# (two 3-term dot products, the numerator and the bound's product;
+# csrc/common.cuh may_reach), one a-trous pixel (9 taps), one
 # variance-guided a-trous pixel (9 taps and the 9-tap prefilter), one blend
 # pixel and one ramp-blend pixel.
 TRI_TEST_OPS = 39
+PLANE_TEST_OPS = 12
 # a ray/box slab test (csrc/bvh.cuh slab): 6 subtractions, 6 products, 3
 # min and 3 max per axis pair, 4 more for the entry and exit, the clamp at
 # 0 and 3 compares and ands
@@ -327,23 +335,27 @@ def record(name: str, source: str, replaces: str, **fields) -> dict:
                 library_ms=None, modes=[], **fields)
 
 
-def trace_tests(pt_mod, td, cam, light, frame_idx, cfg, row_offset: int = 0, rows=None) -> int:
-    """Ray/triangle tests one trace launch runs on these inputs (counted by
-    the kernel itself), for the data-dependent bound; over the row slab
-    ``row_offset``, ``rows`` when given."""
+def trace_tests(pt_mod, td, cam, light, frame_idx, cfg, row_offset: int = 0,
+                rows=None) -> tuple:
+    """Whole ray/triangle tests and the NEE shadow loop's plane tests one
+    trace launch runs on these inputs (counted by the kernel itself), for
+    the data-dependent bound; over the row slab ``row_offset``, ``rows``
+    when given."""
     import torch
 
     rows = cfg.height if rows is None else rows
     tests = torch.zeros((rows, cfg.width), dtype=torch.int32, device=td.lut.device)
+    shadow = torch.zeros(4, dtype=torch.int64, device=td.lut.device)
     pt_mod.path_trace_pass(td, cam.position, light, frame_idx, cfg, cam.rotation, tests=tests,
-                           row_offset=row_offset, rows=rows)
-    return int(tests.sum(dtype=torch.int64).item())
+                           shadow=shadow, row_offset=row_offset, rows=rows)
+    return int(tests.sum(dtype=torch.int64).item()), int(shadow[0].item())
 
 
 def trace_bound(pt_mod, td, cam, light, frame_idx, cfg, row_offset: int = 0, rows=None) -> dict:
-    tests = trace_tests(pt_mod, td, cam, light, frame_idx, cfg, row_offset, rows)
+    tests, planes = trace_tests(pt_mod, td, cam, light, frame_idx, cfg, row_offset, rows)
     rows = cfg.height if rows is None else rows
-    return bound(12 * cfg.width * rows + 108 * td.num_triangles, TRI_TEST_OPS * tests)
+    return bound(12 * cfg.width * rows + 108 * td.num_triangles,
+                 TRI_TEST_OPS * tests + PLANE_TEST_OPS * planes)
 
 
 def lane_share(lanes) -> tuple:
@@ -376,21 +388,37 @@ def one_thread_per_pixel_share(path_len) -> float:
     return path_len.sum(dtype=torch.int64).item() / max(32 * steps, 1)
 
 
-def trace_lane_eff(pt_mod, td, cam, light, frame_idx, cfg, label: str) -> dict:
-    """The dense trace kernel's lane efficiency on these inputs (its
-    counting instantiation): the bounce loop and the triangle loops. The
-    earlier kernel's, modelled from the same paths, goes to MODELLED under
-    ``label``."""
+def trace_counts(pt_mod, td, cam, light, frame_idx, cfg, label: str) -> dict:
+    """The dense trace kernel's counting launch on these inputs, which must
+    give the image of the launch that does not count: ``lane_eff``, the
+    lane efficiency of the bounce loop and of the triangle loops (whole
+    tests), and ``shadow_cut``, the NEE shadow loop's plane-first cut:
+    ``skipped_share``, the share of its plane pass's warp steps that its
+    barycentric pass did not take, ``bary_per_pixel``, its whole tests a
+    pixel, ``bary_lane_eff``, their lanes over 32 x the barycentric warp
+    steps, and ``sums``, the kernel's four counts (all 0 without NEE). The
+    earlier kernel's lane efficiency, modelled from the same paths, goes to
+    MODELLED under ``label``."""
     import torch
 
-    lanes = torch.zeros(4, dtype=torch.int64, device=td.lut.device)
+    dev = td.lut.device
+    lanes = torch.zeros(4, dtype=torch.int64, device=dev)
+    shadow = torch.zeros(4, dtype=torch.int64, device=dev)
     path_len = torch.zeros((cfg.sample_batches * cfg.spp, cfg.height, cfg.width),
-                           dtype=torch.int32, device=td.lut.device)
-    pt_mod.path_trace_pass(td, cam.position, light, frame_idx, cfg, cam.rotation,
-                           path_len=path_len, lanes=lanes)
+                           dtype=torch.int32, device=dev)
+    args = (td, cam.position, light, frame_idx, cfg, cam.rotation)
+    counted = pt_mod.path_trace_pass(*args, path_len=path_len, lanes=lanes, shadow=shadow)
+    check(torch.equal(counted, pt_mod.path_trace_pass(*args)),
+          f"{label}: the counting launch gives the image of the timed one")
     loop, walk = lane_share(lanes)
     MODELLED[label] = dict(bounce_loop_one_thread_per_pixel=one_thread_per_pixel_share(path_len))
-    return dict(bounce_loop=loop, triangle_loops=walk)
+    sums = shadow.tolist()
+    _, plane_steps, bary, bary_steps = sums
+    skipped = 1.0 - bary_steps / plane_steps if plane_steps else 0.0
+    return dict(lane_eff=dict(bounce_loop=loop, triangle_loops=walk),
+                shadow_cut=dict(skipped_share=skipped,
+                                bary_per_pixel=bary / (cfg.width * cfg.height),
+                                bary_lane_eff=bary / max(32 * bary_steps, 1), sums=sums))
 
 
 # The dense geometry kernel (csrc/geometry.cu geometry_kernel), counted from
@@ -565,7 +593,7 @@ def kernel_phase(pt, cuda_ops, dev):
                     "trace_kernel", 10),
         plain_ms=time_fn(lambda: pt_mod.path_trace_pass_plain(
             td, cam.position, light, 5, cfg, rotation=cam.rotation), iters=2, warmup=1),
-        lane_eff=trace_lane_eff(pt_mod, td, cam, light, 5, cfg, f"trace parity {w}x{h}"),
+        **trace_counts(pt_mod, td, cam, light, 5, cfg, f"trace parity {w}x{h}"),
         **trace_bound(pt_mod, td, cam, light, 5, cfg),
     ))
     print(f"trace lane efficiency {w}x{h}: {records[-1]['lane_eff']}")
@@ -751,9 +779,10 @@ def svgf_kernel_phase(pt, cuda_ops, dev, records) -> None:
                         "trace_kernel", 5, warmup=1),
             plain_ms=time_fn(lambda: pt_mod.path_trace_pass_plain(
                 td, cam.position, light, 5, c, rotation=cam.rotation), iters=1, warmup=0),
-            lane_eff=trace_lane_eff(pt_mod, td, cam, light, 5, c, f"trace {label} {w}x{h}"),
+            **trace_counts(pt_mod, td, cam, light, 5, c, f"trace {label} {w}x{h}"),
             **trace_bound(pt_mod, td, cam, light, 5, c)))
-        print(f"trace {label} lane efficiency: {trace_rec['modes'][-1]['lane_eff']}")
+        print(f"trace {label} lane efficiency: {trace_rec['modes'][-1]['lane_eff']}; "
+              f"shadow loop cut: {trace_rec['modes'][-1]['shadow_cut']}")
 
 
 def golden_phase(pt, dev) -> None:

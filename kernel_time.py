@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device time of kernels of a tree, to compare two trees (one CUDA card).
 
-    python3 kernel_time.py [--tree DIR] [--group atrous|walk|dense] [--count]
+    python3 kernel_time.py [--tree DIR] [--group atrous|walk|dense|trace] [--count]
 
 Measures the package found in ``DIR`` (default: this script's directory),
 with the checks and records of this script's ``chip_smoke.py``, so that an
@@ -38,6 +38,17 @@ then timed (the median device ms of a launch); each line has the bound
 and, for a tree whose kernel culls per warp tile (its wrappers take
 ``counts``), the triangle tests and cull survivors a pixel from the
 kernel's counting launch, checked against the cull's plain twin.
+
+``--group trace``: the dense trace kernel (``trace_kernel``) on the
+Cornell box at 1920x1080 under the orbit camera, in the render modes of
+the ``cornell_box_quality`` preset (NEE, 4 spp: the mode whose shadow loop
+cuts by plane first), of 1-spp NEE, and of ``cornell_box_interactive`` (no
+NEE: the cut bypassed). Each is checked bit for bit against its plain
+version, then timed (the median device ms of a launch); each line has the
+whole triangle tests a pixel, the lane efficiency, the bound and, for a
+tree whose wrapper takes ``shadow``, the shadow loop's cut
+(``chip_smoke.trace_counts``). An older tree's wrapper is given a
+``shadow`` keyword that it ignores: it has no plane pass to count.
 
 ``--count`` prints instead, with no card, the a-trous kernels' edge-weight
 evaluations and special-function calls (powf, expf, sqrtf and IEEE
@@ -340,10 +351,55 @@ def dense(pt, dev, emit) -> None:
     emit(kernel="geometry[visibility]", **vis)
 
 
+def trace(pt, dev, emit) -> None:
+    """The dense trace kernel in three render modes (``--group trace``)."""
+    import dataclasses
+    import functools
+    import inspect
+
+    import chip_smoke
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets
+    from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import (
+        pathtrace as pt_mod,
+    )
+
+    if "shadow" not in inspect.signature(pt_mod.path_trace_pass).parameters:
+        # a tree before the shadow loop's plane pass: its counts stay 0
+        fn = pt_mod.path_trace_pass
+        pt_mod.path_trace_pass = functools.wraps(fn)(
+            lambda *args, shadow=None, **kwargs: fn(*args, **kwargs))
+        emit_all = emit
+
+        def emit(**line):
+            line.pop("shadow_cut")
+            emit_all(**line)
+
+    w, h = chip_smoke.BENCH_SIZE
+    td = pt.precompute_triangle_data(pt.Scene.cornell_box(), dev)
+    cam, light = chip_smoke.orbit(pt, 3, dev), pt.Light.default(dev)
+    quality, interactive = (
+        dataclasses.replace(preset(device="cpu", width=16, height=16).cfg, width=w, height=h)
+        for preset in (presets.cornell_box_quality, presets.cornell_box_interactive))
+    modes = {"cornell_box_quality": quality, "nee, 1 spp": dataclasses.replace(quality, spp=1),
+             "cornell_box_interactive": interactive}
+    for name, cfg in modes.items():
+        label = f"{name} (nee={cfg.nee}, spp={cfg.spp}, rr={cfg.rr_start_bounce}), {w}x{h}"
+        args = (td, cam.position, light, 5, cfg, cam.rotation)
+        err = chip_smoke.same_bits(f"trace {label}", pt_mod.path_trace_pass(*args),
+                                   pt_mod.path_trace_pass_plain(*args[:5], rotation=cam.rotation))
+        tests, _ = chip_smoke.trace_tests(pt_mod, td, cam, light, 5, cfg)
+        emit(kernel="trace", mode=label, max_abs_err=err,
+             **chip_smoke.kernel_ms(lambda: pt_mod.path_trace_pass(*args), "trace_kernel"),
+             tests_per_pixel=tests / (w * h),
+             **chip_smoke.trace_counts(pt_mod, td, cam, light, 5, cfg, label),
+             **chip_smoke.trace_bound(pt_mod, td, cam, light, 5, cfg))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)))
-    parser.add_argument("--group", choices=("atrous", "walk", "dense"), default="atrous")
+    parser.add_argument("--group", choices=("atrous", "walk", "dense", "trace"),
+                        default="atrous")
     parser.add_argument("--count", action="store_true")
     args = parser.parse_args()
     if args.count:
@@ -374,7 +430,8 @@ def main() -> int:
         print(json.dumps(dict(tree=tree, card=card, **line)), flush=True)
 
     try:
-        {"atrous": atrous, "walk": walk, "dense": dense}[args.group](pt, dev, emit)
+        {"atrous": atrous, "walk": walk, "dense": dense, "trace": trace}[args.group](pt, dev,
+                                                                                   emit)
     except chip_smoke.PhaseError as e:
         print(f"kernel_time: {e}", file=sys.stderr)
         return 1

@@ -120,6 +120,10 @@ struct Counts {
   int* seen_node;
   int* seen_tri;
   unsigned walk_lanes, walk_steps;
+  // the dense shadow loop (bounce.cuh DenseTable::occluded): the lane
+  // steps and warp steps (count_lanes) of its plane pass, then of its
+  // barycentric pass (whole tests, also counted in tri and walk_*)
+  unsigned shadow[4];
 };
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -147,15 +151,21 @@ __device__ __forceinline__ void count_lanes(unsigned& lanes, unsigned& steps) {
   if ((int)lane_id() == __ffs(m) - 1) steps += 1;
 }
 
+// Adds the warp's sums of v[0:n] to out[0:n]; all 32 lanes call it together.
+template <int n>
+__device__ __forceinline__ void flush_sums(unsigned long long* out, const unsigned (&v)[n]) {
+  for (int k = 0; k < n; ++k) {
+    unsigned sum = __reduce_add_sync(kFullMask, v[k]);
+    if (lane_id() == 0) atomicAdd(out + k, (unsigned long long)sum);
+  }
+}
+
 // Adds a warp's lane counts to out[0:4] (the outer loop's lanes and steps,
 // the walks' lanes and steps); all 32 lanes call it together.
 __device__ __forceinline__ void flush_lanes(unsigned long long* out, unsigned loop_lanes,
                                             unsigned loop_steps, const Counts& c) {
   unsigned v[4] = {loop_lanes, loop_steps, c.walk_lanes, c.walk_steps};
-  for (int k = 0; k < 4; ++k) {
-    unsigned sum = __reduce_add_sync(kFullMask, v[k]);
-    if (lane_id() == 0) atomicAdd(out + k, (unsigned long long)sum);
-  }
+  flush_sums(out, v);
 }
 
 // Blocks of ``block`` threads with ``smem`` bytes of dynamic shared memory
@@ -203,6 +213,36 @@ __device__ __forceinline__ bool tri_test(V3 n, float d0, V3 n1, float d1, V3 n2,
   u = n1o + t * n1d + d1;
   v = n2o + t * n2d + d2;
   return !parallel && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f && t <= t_max;
+}
+
+// The bound that may_reach compares with, for a segment that ends at cap:
+// lim = min(cap, t_max) raised by 2^-20 of itself; infinite where lim is
+// too small for may_reach's argument (lim min(eps, 1) < 2^-125), and then
+// only the sign cuts.
+__device__ __forceinline__ float upper_reach(float cap, float t_max, float eps) {
+  float lim = fminf(cap, t_max);
+  return lim * fminf(eps, 1.0f) >= 2.3509887e-38f /* 2^-125 */
+             ? lim * 1.00000095367431640625f /* 1 + 2^-20 */
+             : INFINITY;
+}
+
+// Whether tri_test's plane t may lie in (0, lim] (reach = upper_reach(cap,
+// t_max, eps)), from the plane (n, d0) alone and with no division: false
+// only where tri_test fails or gives a t above lim, so a triangle it rules
+// out needs no barycentric half. tri_test computes num = d0 - o.n and
+// nd = d.n as here and, unless |nd| < eps (then it fails), t = RN(num / nd).
+// q is num with nd's sign folded in, exactly.
+// - q <= 0 or NaN: num / nd <= 0 or NaN, so t > 0 fails.
+// - q > RN(reach |nd|): since lim min(eps, 1) >= 2^-125 and |nd| >= eps, the
+//   products reach = RN(lim k), k = 1 + 2^-20, and RN(reach |nd|) are normal,
+//   each within a factor 1 - 2^-24 of exact, so num / nd > lim |nd| k
+//   (1 - 2^-24)^2 / |nd| > lim (1 + 2^-21) >= the next float above lim
+//   (lim is normal); rounding keeps t at or above that float, so t > lim.
+//   An infinite bound never cuts.
+__device__ __forceinline__ bool may_reach(V3 n, float d0, V3 o, V3 d, float reach) {
+  float num = d0 - dot(o, n), nd = dot(d, n);
+  float q = __int_as_float(__float_as_int(num) ^ (__float_as_int(nd) & 0x80000000));
+  return (q > 0.0f) & (q <= reach * fabsf(nd));
 }
 
 // The same test against a table row.

@@ -19,7 +19,9 @@
 // What bounds it on the H100: arithmetic and divergence. A path runs a
 // data-dependent number of segments (1 to max_bounces), each testing all T
 // triangles (~39 flops per test), plus under NEE one shadow walk per bounce
-// that stops at the first occluder; a pixel writes 12 bytes at the end.
+// that stops at the first occluder and runs the whole test only on the
+// triangles whose plane the lane's segment to the light may cross
+// (bounce.cuh DenseTable::occluded); a pixel writes 12 bytes at the end.
 // With one thread per pixel and the sample loop around the path, a warp
 // paid, for each sample, the longest path among its 32 lanes. Here a lane
 // never waits on a neighbour's path:
@@ -42,10 +44,11 @@
 //   broadcast, since every lane of a warp tests the same row. The table is
 //   staged once per persistent block.
 //
-// NEE, Russian roulette and the counting instantiation (triangle tests per
-// pixel, each sample's path length and the lane efficiency of the bounce
-// loop and of the triangle loops, for chip_smoke.py) are template
-// parameters, chosen at launch.
+// NEE, Russian roulette and the counting instantiation (whole triangle
+// tests per pixel, each sample's path length, the lane efficiency of the
+// bounce loop and of the triangle loops, and the lane and warp steps of the
+// shadow loop's two passes, for chip_smoke.py) are template parameters,
+// chosen at launch.
 //
 // A row slab (row_offset, rows: the row-sharded frame of parallel/, the TPU
 // kernel's row_offset): the work counter runs over rows x width pixels,
@@ -63,9 +66,12 @@ constexpr int kBlock = 256;
 
 struct TraceOut {
   float* out;            // (H, W, 3)
-  int* tests;            // (H, W) triangle tests per pixel, or null
+  int* tests;            // (H, W) whole triangle tests per pixel, or null
   int* path_len;         // (batches * spp, H, W) segments each sample's path ran, or null
   unsigned long long* lanes;  // 4 lane-efficiency sums (common.cuh flush_lanes), or null
+  // the dense shadow loop's lane steps and warp steps of its plane pass and
+  // of its barycentric pass (Counts::shadow), or null
+  unsigned long long* shadow;
   // [next pixel to fetch, blocks finished]: zero at the start of a launch,
   // and reset by its last block (launches that share them run in order)
   int* fetch;
@@ -157,6 +163,7 @@ __global__ void __launch_bounds__(kBlock)
     start_sample();
   }
   if (kCount && o.lanes != nullptr) flush_lanes(o.lanes, loop_lanes, loop_steps, c);
+  if (kCount && o.shadow != nullptr) flush_sums(o.shadow, c.shadow);
 
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -166,6 +173,37 @@ __global__ void __launch_bounds__(kBlock)
       atomicExch(o.fetch + 1, 0);
     }
   }
+}
+
+// A test hook, launched by no frame: for the card tests of the shadow
+// loop's plane cut, ray i (rays[8 i:], o, d, cap, t_max) asks
+// DenseTable::occluded (out[2 i]) and, the same question, the whole test of
+// every triangle (out[2 i + 1]); t[i] is the least t of a valid hit,
+// whatever cap (infinite if none).
+__global__ void occluded_probe_kernel(const float* __restrict__ table, int num_tris,
+                                      const float* __restrict__ rays, int n, float eps,
+                                      float* t, int* out) {
+  extern __shared__ float4 smem[];
+  stage_rows(smem, table, num_tris);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const DenseTable sc = {smem, num_tris};
+  const float* r = rays + 8 * i;
+  const V3 o = load3(r), d = load3(r + 3);
+  const float cap = r[6], t_max = r[7];
+  bool every = false;
+  float least = INFINITY;
+  for (int k = 0; k < num_tris; ++k) {
+    float tk, u, v;
+    bool valid = sc.test(k, o, d, t_max, eps, tk, u, v);
+    every |= valid && tk <= cap;
+    if (valid) least = fminf(least, tk);
+  }
+  Counts c = {};
+  t[i] = least;
+  out[2 * i] = sc.occluded<false>(o, d, cap, t_max, eps, c);
+  out[2 * i + 1] = every;
 }
 
 using TraceFn = void (*)(const float*, int, const float*, TraceArgs, TraceOut);
@@ -184,15 +222,17 @@ extern "C" int ptsf_trace(const float* table, int num_tris, const float* params,
                           float light_r, float light_r2, float first_dim,
                           int light_through_walls, int nee, int rr_start, float rr_min,
                           float rr_max, int truncate, int* fetch, float* out, int* tests_out,
-                          int* path_len, unsigned long long* lanes, cudaStream_t stream) {
+                          int* path_len, unsigned long long* lanes,
+                          unsigned long long* shadow, cudaStream_t stream) {
   TraceArgs a = {width,   height,   frame,   max_bounces, spp,       batches,
                  slope,   aa_sigma, ray_eps, t_max,       eps,       light_r,
                  light_r2, first_dim, light_through_walls, rr_start, truncate, rr_min,
                  rr_max};
   if (row_offset < 0 || rows < 1 || row_offset + rows > height) return (int)cudaErrorInvalidValue;
-  TraceOut o = {out, tests_out, path_len, lanes, fetch, row_offset, rows};
+  TraceOut o = {out, tests_out, path_len, lanes, shadow, fetch, row_offset, rows};
   size_t smem = sizeof(float4) * kRowVec * num_tris;
-  bool count = tests_out != nullptr || path_len != nullptr || lanes != nullptr;
+  bool count =
+      tests_out != nullptr || path_len != nullptr || lanes != nullptr || shadow != nullptr;
   TraceFn kernel = nee ? (rr_start > 0 ? pick_trace<true, true>(count)
                                        : pick_trace<true, false>(count))
                        : (rr_start > 0 ? pick_trace<false, true>(count)
@@ -201,5 +241,13 @@ extern "C" int ptsf_trace(const float* table, int num_tris, const float* params,
   int grid = resident_blocks(kernel, kBlock, smem);
   if (grid > pixel_blocks) grid = pixel_blocks;
   kernel<<<grid, kBlock, smem, stream>>>(table, num_tris, params, a, o);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ptsf_occluded_probe(const float* table, int num_tris, const float* rays, int n,
+                                   float eps, float* t, int* out, cudaStream_t stream) {
+  constexpr int block = 128;
+  occluded_probe_kernel<<<(n + block - 1) / block, block, sizeof(float4) * kRowVec * num_tris,
+                          stream>>>(table, num_tris, rays, n, eps, t, out);
   return (int)cudaGetLastError();
 }

@@ -128,10 +128,14 @@ def signatures() -> dict:
         # table, num_tris, params, width, height, row_offset, rows, frame,
         # max_bounces, spp, batches, slope, aa_sigma, ray_eps, t_max, eps, light_r, light_r2,
         # first_dim, light_through_walls, nee, rr_start, rr_min, rr_max,
-        # truncate, fetch, out, tests_out, path_len, lanes (all three null:
-        # not counted), stream
+        # truncate, fetch, out, tests_out, path_len, lanes, shadow (all four
+        # null: not counted), stream
         "ptsf_trace": [p, i, p, i, i, i, i, i, i, i, i, f, f, f, f, f, f, f, f, i, i, i, f, f, i,
-                       p, p, p, p, p, p],
+                       p, p, p, p, p, p, p],
+        # A test hook, not a kernel of the frame (no renderer launches it):
+        # table, num_tris, rays, n, eps, t, out, stream; the shadow loop's
+        # answer beside the whole test's (tests/test_torch_cuda.py)
+        "ptsf_occluded_probe": [p, i, p, i, f, p, p, p],
         # color_in, normal, depth (height + 2 halo rows), color_out, width,
         # height, halo, k, sigma_n, sigma_z, sigma_l, stream
         "ptsf_atrous_iter": [p, p, p, p, i, i, i, i, f, f, f, p],

@@ -51,7 +51,8 @@ def pack_table(tri_data) -> torch.Tensor:
 
 
 def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation, tests=None,
-                    path_len=None, lanes=None, row_offset: int = 0, rows: int | None = None):
+                    path_len=None, lanes=None, shadow=None, row_offset: int = 0,
+                    rows: int | None = None):
     """Noisy radiance (H, W, 3) of one frame (plain version for CPU
     tensors); with ``row_offset``/``rows``, (rows, W, 3) of the slab of
     ``rows`` rows from global row ``row_offset`` on (the row-sharded frame),
@@ -62,7 +63,13 @@ def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation, tests
     walks); ``path_len`` (sample_batches * spp, H, W) int32 the segments
     each sample's path ran; ``lanes`` (4,) int64 accumulates the lane
     efficiency: lanes that ran a bounce and warp steps of the bounce loop,
-    lanes that ran a triangle test and warp steps of the triangle loops."""
+    lanes that ran a triangle test and warp steps of the triangle loops;
+    ``shadow`` (4,) int64 accumulates the NEE shadow loop's two passes
+    (csrc/bounce.cuh DenseTable::occluded), laid out as ``lanes``: lanes
+    that ran a plane test and warp steps of the plane pass, lanes that ran
+    a whole test and warp steps of the barycentric pass (all 0 without
+    NEE). ``tests`` and the triangle loops' ``lanes`` count whole tests
+    only: the barycentric pass's, not the plane pass's."""
     h = slab(cfg, row_offset, rows)
     if camera_pos.device.type == "cpu":
         return path_trace_pass_plain(
@@ -93,6 +100,8 @@ def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation, tests
         _build.check_cuda("path_len", path_len, torch.int32, (cfg.sample_batches * cfg.spp, h, w))
     if lanes is not None:
         _build.check_cuda("lanes", lanes, torch.int64, (4,))
+    if shadow is not None:
+        _build.check_cuda("shadow", shadow, torch.int64, (4,))
     out = torch.empty((h, w, 3), dtype=torch.float32, device=table.device)
 
     def f32(x) -> float:
@@ -119,6 +128,6 @@ def path_trace_pass(tri_data, camera_pos, light, frame_idx, cfg, rotation, tests
         int(cfg.truncate_radiance),
         _fetch_counters(table.device).data_ptr(),
         out.data_ptr(),
-        *(None if x is None else x.data_ptr() for x in (tests, path_len, lanes)),
+        *(None if x is None else x.data_ptr() for x in (tests, path_len, lanes, shadow)),
     )
     return out

@@ -634,33 +634,125 @@ def test_gradient_paths_routes_agree(dev, path, per_frame):
 SMALL = dict(width=96, height=64)
 
 
+# Scenes for the NEE shadow loop's plane-first cut: the light's position and
+# the camera's (position, target), None for the defaults.
+TRACE_SCENES = {
+    "default": (None, None),
+    # the light's centre behind the right wall's plane (x = 1): the wall
+    # occludes much of the sphere
+    "light_behind_wall": ([1.05, 1.0, -0.4], None),
+    # the camera in the floor's plane, looking along it: with no jitter and
+    # an odd height, the middle row's rays run parallel to the floor
+    "along_floor": (None, ([-0.001, 0.0, 6.0], [-0.001, 0.0, 0.0])),
+    # the sphere (radius 0.2) rests on the short box's top face (y = 0.6):
+    # rays enter it where that face's plane is
+    "light_on_box": ([0.33, 0.8, 0.37], None),
+}
+
+
 @pytest.mark.parametrize(
-    "overrides",
-    [dict(), dict(nee=True), dict(rr_start_bounce=2), dict(spp=3, sample_batches=2),
-     dict(truncate_radiance=True), dict(nee=True, spp=2, rr_start_bounce=1, max_bounces=5)],
-    ids=["parity", "nee", "rr2", "spp3_batches2", "truncate", "nee_spp2_rr1"],
+    "overrides, scene",
+    [(dict(), "default"), (dict(nee=True), "default"), (dict(rr_start_bounce=2), "default"),
+     (dict(spp=3, sample_batches=2), "default"), (dict(truncate_radiance=True), "default"),
+     (dict(nee=True, spp=2, rr_start_bounce=1, max_bounces=5), "default"),
+     (dict(nee=True), "light_behind_wall"),
+     (dict(nee=True, aa_sigma=0.0, height=63), "along_floor"),
+     (dict(nee=True), "light_on_box")],
+    ids=["parity", "nee", "rr2", "spp3_batches2", "truncate", "nee_spp2_rr1",
+         "nee_light_behind_wall", "nee_along_floor", "nee_light_on_box"],
 )
-def test_trace_kernel_bit_equal_to_plain(dev, overrides):
+def test_trace_kernel_bit_equal_to_plain(dev, overrides, scene):
     """The persistent dense kernel gives the plain tracer's image bit for
-    bit, and its counting launch the same image and a lane efficiency."""
-    cfg = RenderConfig(**SMALL, **overrides)
+    bit, and its counting launch the same image, a lane efficiency whose
+    triangle loops count the whole tests and, under NEE only, a shadow loop
+    whose barycentric pass takes fewer warp steps than its plane pass."""
+    cfg = RenderConfig(**{**SMALL, **overrides})
     td = precompute_triangle_data(Scene.cornell_box(), dev)
+    light_at, view = TRACE_SCENES[scene]
     cam, light = Camera.default(dev), Light.default(dev)
+    if light_at is not None:
+        light = Light(torch.tensor(light_at, dtype=torch.float32, device=dev), light.color)
+    if view is not None:
+        cam = Camera.looking_at(*view, device=dev)
     k = cuda_pathtrace.path_trace_pass(td, cam.position, light, 4, cfg, cam.rotation)
     p = cuda_pathtrace.path_trace_pass_plain(td, cam.position, light, 4, cfg,
                                              rotation=cam.rotation)
     assert torch.equal(k, p)
     lanes = torch.zeros(4, dtype=torch.int64, device=dev)
+    shadow = torch.zeros(4, dtype=torch.int64, device=dev)
+    tests = torch.zeros((cfg.height, cfg.width), dtype=torch.int32, device=dev)
     path_len = torch.zeros((cfg.sample_batches * cfg.spp, cfg.height, cfg.width),
                            dtype=torch.int32, device=dev)
     counted = cuda_pathtrace.path_trace_pass(td, cam.position, light, 4, cfg, cam.rotation,
-                                             path_len=path_len, lanes=lanes)
+                                             tests=tests, path_len=path_len, lanes=lanes,
+                                             shadow=shadow)
     assert torch.equal(counted, k)
     assert path_len.min().item() >= 1 and path_len.max().item() <= cfg.max_bounces
-    # every bounce of every path is one lane step of the bounce loop
+    # every bounce of every path is one lane step of the bounce loop, and
+    # every whole triangle test one lane step of the triangle loops
     assert lanes[0].item() == path_len.sum(dtype=torch.int64).item()
     assert 0 < lanes[0].item() <= 32 * lanes[1].item()
+    assert lanes[2].item() == tests.sum(dtype=torch.int64).item()
     assert 0 < lanes[2].item() <= 32 * lanes[3].item()
+    planes, plane_steps, bary, bary_steps = shadow.tolist()
+    if cfg.nee:
+        # the barycentric pass's whole tests are some of the triangle loops'
+        # steps, and it takes fewer warp steps than the plane pass
+        assert 0 < bary_steps < plane_steps and bary_steps < lanes[3].item()
+        assert 0 < bary <= 32 * bary_steps and bary < planes <= 32 * plane_steps
+    else:
+        assert (planes, plane_steps, bary, bary_steps) == (0, 0, 0, 0)
+
+
+def _occluded_probe(td, rays, eps):
+    """DenseTable::occluded and the whole test of every triangle on rays
+    (n, 8: origin, direction, cap, t_max; csrc/pathtrace.cu
+    occluded_probe_kernel): the two answers and each ray's least valid t."""
+    n = rays.shape[0]
+    table = cuda_pathtrace.pack_table(td)
+    t = torch.empty(n, dtype=torch.float32, device=rays.device)
+    out = torch.empty((n, 2), dtype=torch.int32, device=rays.device)
+    _build.launch("ptsf_occluded_probe", table.data_ptr(), td.num_triangles, rays.data_ptr(), n,
+                  eps, t.data_ptr(), out.data_ptr())
+    return out[:, 0].bool(), out[:, 1].bool(), t
+
+
+@pytest.mark.parametrize("scene", ["cornell_box", "one_plane"])
+def test_shadow_loop_plane_cut_keeps_boundary_hits(dev, scene):
+    """The shadow loop's division-free plane cut (common.cuh may_reach)
+    drops no triangle the whole test keeps: segments that end exactly at
+    their nearest hit's t, by cap or by t_max, or one float either side of
+    it, get from DenseTable::occluded the answer of the whole test of every
+    triangle."""
+    if scene == "one_plane":  # one large triangle in the plane y = 0.6
+        verts = np.array([[-4.0, 0.6, -4.0], [4.0, 0.6, -4.0], [0.0, 0.6, 6.0]], np.float32)
+        td = precompute_triangle_data(Scene.from_arrays(verts, np.array([[0, 1, 2]], np.int32)),
+                                      dev)
+    else:
+        td = precompute_triangle_data(Scene.cornell_box(), dev)
+    g = torch.Generator().manual_seed(17)
+    n = 8192
+    o = torch.rand((n, 3), generator=g) * torch.tensor([1.9, 1.9, 1.9]) + torch.tensor(
+        [-0.95, 0.04, -1.0])
+    d = torch.randn((n, 3), generator=g)
+    d = d / d.norm(dim=1, keepdim=True)
+    far = torch.full((n, 1), 1e4)
+    eps = RenderConfig().intersect_eps
+    _, _, least = _occluded_probe(td, torch.cat([o, d, far, far], 1).to(dev).contiguous(), eps)
+    keep = torch.isfinite(least)
+    assert keep.sum().item() > n // 4
+    t = least[keep]
+    od = torch.cat([o, d], 1).to(dev)[keep]
+    big = torch.full_like(t, 1e4)
+    below, above = torch.nextafter(t, t - 1), torch.nextafter(t, t + 1)
+    cases = {(True, "cap"): (t, big), (True, "t_max"): (big, t), (True, "both"): (t, t),
+             (True, "cap above"): (above, big), (True, "t_max above"): (big, above),
+             (False, "cap below"): (below, big), (False, "t_max below"): (big, below)}
+    for (hit, name), (cap, t_max) in cases.items():
+        rays = torch.cat([od, cap[:, None], t_max[:, None]], 1).contiguous()
+        got, want, _ = _occluded_probe(td, rays, eps)
+        assert bool(want.all()) if hit else not bool(want.any()), name
+        assert torch.equal(got, want), name
 
 
 @pytest.mark.parametrize("mode", ["frame", "pixels", "gbuffer_seed"])
