@@ -13,10 +13,17 @@ matrix with per-pixel points are written out term by term
 (``m[0]*x + m[1]*y + m[2]*z + m[3]``), the order the CUDA kernels use, so
 the two agree bit for bit on the card. The 4x4 products go through
 :func:`matmul_highest`, which pins full float32 (no TF32) on the card.
+
+The projection and the constant rows are copied to a device once, on their
+first use there, and shared after that (:func:`vulkan_perspective`,
+:func:`device_constant`): a frame's matrices then come from on-device
+operations alone, and the host never waits on the card for them. The
+shared tensors are read, never written in place.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -107,6 +114,13 @@ def pixel_rays(px, py, width, height, fov, jitter_x=None, jitter_y=None,
     return d / norm3(d, keepdim=True)
 
 
+@functools.lru_cache(maxsize=64)
+def device_constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """The float32 vector ``values`` on ``device``, copied there once and
+    shared by every later call: read it, never write it in place."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def look_at(eye, center, up):
     """glm::lookAt, right-handed (used at main.cpp:1471)."""
     f = center - eye
@@ -114,8 +128,7 @@ def look_at(eye, center, up):
     s = cross3(f, up)
     s = s / norm3(s)
     u = cross3(s, f)
-    last = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float32,
-                        device=eye.device)
+    last = device_constant((0.0, 0.0, 0.0, 1.0), eye.device)
     return torch.stack(
         [
             torch.cat([s, -dot3(s, eye)[None]]),
@@ -148,11 +161,16 @@ def perspective(fovy, aspect, near, far, device=None):
     return torch.from_numpy(m).to(device)
 
 
+@functools.lru_cache(maxsize=64, typed=True)
 def vulkan_perspective(fovy, aspect, near, far, device=None):
-    """perspective() with the reference's y flip (main.cpp:1472)."""
-    p = perspective(fovy, aspect, near, far, device=device)
+    """perspective() with the reference's y flip (main.cpp:1472).
+
+    Made once per set of arguments, the numbers keyed with their types, and
+    shared by every later call: read it, never write it in place. The flip
+    is made on the host, before the one copy to ``device``."""
+    p = perspective(fovy, aspect, near, far)
     p[1, 1] = -p[1, 1]
-    return p
+    return p.to(device)
 
 
 def camera_view(position, rotation):
@@ -161,9 +179,8 @@ def camera_view(position, rotation):
     reference's translate-only lookAt (main.cpp:1471)."""
     rt = rotation.T
     top = torch.cat([rt, -mat_apply(rt, position, w=False)[:, None]], dim=1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=torch.float32,
-                          device=position.device)
-    return torch.cat([top, bottom], dim=0)
+    bottom = device_constant((0.0, 0.0, 0.0, 1.0), position.device)
+    return torch.cat([top, bottom[None]], dim=0)
 
 
 def reference_view(camera_pos):
@@ -173,8 +190,8 @@ def reference_view(camera_pos):
     rotates).
     """
     dev = camera_pos.device
-    center = camera_pos + torch.tensor([0.0, 0.0, -6.0], device=dev)
-    up = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    center = camera_pos + device_constant((0.0, 0.0, -6.0), dev)
+    up = device_constant((0.0, 1.0, 0.0), dev)
     return look_at(camera_pos, center, up)
 
 

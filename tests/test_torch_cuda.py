@@ -8,6 +8,8 @@ installed:
 """
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
@@ -34,6 +36,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops.cuda import 
 )
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.models import presets
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import atrous
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import camera as cam_ops
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline import frame
 
 torch.set_num_threads(1)
@@ -930,3 +933,44 @@ def test_native_loader_and_apply_keys_on_the_card(dev, tmp_path):
     for got, want in zip(loader.load_obj(path), obj.load_obj_python(path)):
         np.testing.assert_array_equal(got, want)
     assert chip_smoke.input_sync_check(pt, dev) == len(chip_smoke.KEY_SETS)
+
+
+def _matrices_copied_up(camera, cfg, dev):
+    """camera_matrices as every frame once built them on the card: the
+    numpy projection copied up and flipped there, the view's last row made
+    by torch.tensor."""
+    proj = cam_ops.perspective(cfg.fov * 2.0, cfg.width / cfg.height, cfg.near, cfg.far,
+                               device=dev)
+    proj[1, 1] = -proj[1, 1]
+    rt = camera.rotation.T
+    top = torch.cat([rt, -cam_ops.mat_apply(rt, camera.position, w=False)[:, None]], dim=1)
+    last = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=torch.float32, device=dev)
+    return torch.cat([top, last]), proj
+
+
+@pytest.mark.parametrize("traffic", ["quality_orbit", "interactive_orbit_dense"])
+def test_frame_matrices_make_no_sync(dev, traffic):
+    """Once the renderer has made its first history, frame.camera_matrices
+    copies nothing from the host: under set_sync_debug_mode("error") it
+    raises nothing, nor do two Renderer.step() frames of the benchmark
+    cell's render mode at 160x128, and its matrices equal those built by
+    copying up from the host."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "perfbench", "traffic", f"{traffic}.json")) as f:
+        cfg = RenderConfig(width=160, height=128, **json.load(f)["render"])
+    _build.library()
+    r = Renderer(Scene.cornell_box(), cfg, device=dev)
+    cams = [Camera.orbit([0.0, 1.0, 0.0], 6.0, a, 1.0, device=dev) for a in (0.1, 0.11)]
+    want = [_matrices_copied_up(c, cfg, dev) for c in cams]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [frame.camera_matrices(c, cfg) for c in cams]
+        for c in cams:
+            r.camera = c
+            r.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for (view, proj), (want_view, want_proj) in zip(got, want):
+        assert torch.equal(view, want_view)
+        assert torch.equal(proj, want_proj)

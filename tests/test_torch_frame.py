@@ -3,6 +3,7 @@ camera+light sequence, checkpoint resume across packages and the kernel
 route's wiring."""
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -16,10 +17,12 @@ from real_time_path_tracing_with_spatiotemporal_filtering_tpu.pipeline import (
     frame as jframe,
 )
 from real_time_path_tracing_with_spatiotemporal_filtering_torch import (
+    Camera,
     Renderer,
     RenderConfig,
     Scene,
 )
+from real_time_path_tracing_with_spatiotemporal_filtering_torch.ops import camera as cam_ops
 from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline import (
     frame as tframe,
 )
@@ -30,6 +33,7 @@ from real_time_path_tracing_with_spatiotemporal_filtering_torch.pipeline.history
 torch.set_num_threads(1)
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "perfbench")
 CFG = RenderConfig(width=48, height=32, max_bounces=6, wavelet_iterations=3, backend="xla")
 CAM_STEP = np.float32([0.05, 0.0, 0.0])
 LIGHT_STEP = np.float32([0.1, 0.0, 0.0])
@@ -158,3 +162,62 @@ def test_history_from_numpy_carries_jax_history(cornell_tri_data):
     assert port.frame == 0
     np.testing.assert_array_equal(port.proj.numpy(), np.asarray(hist.proj))
     np.testing.assert_array_equal(port.lut.numpy(), np.asarray(hist.lut))
+
+
+def _cell_config(traffic: str) -> RenderConfig:
+    """A benchmark cell's render settings: the cornell_box configuration's
+    display size and the traffic's render mode (perfbench/)."""
+    with open(os.path.join(BENCH, "configs", "cornell_box.json")) as f:
+        display = json.load(f)["display"]
+    with open(os.path.join(BENCH, "traffic", f"{traffic}.json")) as f:
+        render = json.load(f)["render"]
+    return RenderConfig(width=display["width"], height=display["height"], **render)
+
+
+MATRIX_CONFIGS = {
+    "quality_orbit": lambda: _cell_config("quality_orbit"),
+    "interactive_orbit_dense": lambda: _cell_config("interactive_orbit_dense"),
+    "fov035_160x128": lambda: RenderConfig(width=160, height=128, fov=0.35),
+}
+
+
+def _matrices_from_scratch(camera, cfg):
+    """camera_matrices built as every frame once built them: a fresh
+    projection from the host, flipped in place, and the view's last row
+    made by torch.tensor."""
+    proj = cam_ops.perspective(cfg.fov * 2.0, cfg.width / cfg.height, cfg.near, cfg.far)
+    proj[1, 1] = -proj[1, 1]
+    rt = camera.rotation.T
+    top = torch.cat([rt, -cam_ops.mat_apply(rt, camera.position, w=False)[:, None]], dim=1)
+    return torch.cat([top, torch.tensor([[0.0, 0.0, 0.0, 1.0]])]), proj
+
+
+@pytest.mark.parametrize("name", list(MATRIX_CONFIGS))
+def test_cached_matrices_equal_a_fresh_build(name):
+    """The shared projection and the view on the shared last row are bit
+    for bit the matrices built from scratch, and a second call hands back
+    the same projection object."""
+    cfg = MATRIX_CONFIGS[name]()
+    camera = Camera.orbit([0.0, 1.0, 0.0], 6.0, 0.3, 1.0)
+    view, proj = tframe.camera_matrices(camera, cfg)
+    want_view, want_proj = _matrices_from_scratch(camera, cfg)
+    assert torch.equal(view, want_view)
+    assert torch.equal(proj, want_proj)
+    again_view, again_proj = tframe.camera_matrices(camera, cfg)
+    assert again_proj is proj
+    assert torch.equal(again_view, view)
+
+
+def test_frames_leave_the_cached_projection_unchanged():
+    """Two frames of render_frame_impl write nothing into the shared
+    projection, which every later frame and the history read."""
+    cfg = dataclasses.replace(CFG, variance_guided=True, accumulation_ramp=True,
+                              adaptive_alpha=True)
+    r = _renderer(cfg)
+    proj = tframe.camera_matrices(r.camera, cfg)[1]
+    before = proj.clone()
+    assert r.history.proj is proj
+    for _ in range(2):
+        _advance_port(r)
+    assert r.history.proj is proj
+    assert torch.equal(proj, before)
